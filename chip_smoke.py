@@ -3,12 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the two hand-written CUDA kernels from fiode_tpu_torch/csrc, holds
-each against its plain PyTorch version at the flagship's shapes, drives the
-flagship forward solve (KWLarge Cayley backbone -> simplex neural ODE,
-dopri5) through the kernels and through the plain path, checks that the
-kernels carried the solve, and times both.  No phase catches its own
-failure.  Without a CUDA device it exits non-zero and prints no result.
+Builds the hand-written CUDA kernels from fiode_tpu_torch/csrc (K1 and K2
+in fused_rhs.cu, K3 in fused_cayley_conv.cu), holds each against its plain
+PyTorch version at the shapes its paths give it, and drives two paths
+through the kernels and through the plain path, checking that the kernels
+carried each and timing both:
+
+  * phases 3-6: the flagship forward solve (KWLarge Cayley backbone ->
+    simplex neural ODE, dopri5), K1 and K3;
+  * phases 7-10: gradients through the solve of the certified configuration
+    (ReLU dynamics, scale_nominal off, t_max 0.1, max_steps 8) and the
+    AutoAttack standard suite on it (apgd-ce, apgd-t, fab-t, square; 512
+    images, L2 eps 0.141, 100 iterations, 5000 Square queries): K2, K3 on
+    Q^H as the conv backward, and K1 and K3 in every attack forward.
+
+No phase catches its own failure.  Without a CUDA device it exits non-zero
+and prints no result.
 
 The second-to-last line of stdout is a JSON object describing each kernel,
 the last line the contract object
@@ -21,6 +31,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -35,6 +46,21 @@ K1_TOL, K3_TOL, E2E_TOL = 2e-4, 1e-4, 1e-3
 # space_to_depth for the strided ones)
 CONV_SHAPES = ((3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16),
                (256, 64, 2, 8))
+# phases 7-10: the certified configuration and the attack protocol of
+# run_data/certified_full/autoattack_full_standard_512_tmax01.json
+T_MAX, MAX_STEPS = 0.1, 8
+K2_BATCH, K2_TOL = 4096 + 17, 1e-4
+K3_BWD_BATCH, K3_BWD_TIME_BATCH = 64, 4096
+GRAD_BATCH, GRAD_LOSS_TOL, GRAD_DX_TOL = 512, 1e-3, 5e-3
+# phase 9 excludes images whose GroupSort pairs took another branch on the
+# two paths; more than this share of them means the forwards drifted apart
+GRAD_MAX_FLIPPED = 0.05
+ATTACK_IMAGES, ATTACK_EPS, ATTACK_ITERS, SQUARE_QUERIES = 512, 0.141, 100, 5000
+# K2 checks give a zero cotangent to rows whose float64 pre-activations lie
+# this close to a ReLU kink, or whose projection lanes this close to the
+# active-set boundary: there the gradient jumps, and two correct float32
+# evaluations (the kernel's and cuBLAS's sum orders) may take different sides
+KINK_MARGIN, ACTIVE_MARGIN = 1e-5, 1e-4
 
 
 def log(msg: str) -> None:
@@ -60,19 +86,359 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def counts() -> dict:
+    from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply
+    from fiode_tpu_torch.ops.fused_rhs import fused_rhs, fused_rhs_vjp
+    return {"fused_rhs": fused_rhs.launches,
+            "fused_rhs_backward": fused_rhs_vjp.launches,
+            "fused_freq_apply": fused_freq_apply.launches}
+
+
+def reset_counts() -> None:
+    from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply
+    from fiode_tpu_torch.ops.fused_rhs import fused_rhs, fused_rhs_vjp
+    fused_rhs.launches = fused_rhs_vjp.launches = fused_freq_apply.launches = 0
+
+
+def plain_freq_apply(x, Qr, Qi):
+    from fiode_tpu_torch.ops.cayley import apply_freq_matrices
+    return apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft")
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Run solves with K1 and K3 replaced by their plain versions; their
+    backward is then autograd through the plain versions (no K2)."""
+    from fiode_tpu_torch.models import ivp, layers
+    from fiode_tpu_torch.ops.fused_rhs import rhs_reference
+    before = counts()
+    with mock.patch.object(ivp, "fused_rhs", rhs_reference), \
+            mock.patch.object(layers, "fused_freq_apply", plain_freq_apply):
+        yield
+    if counts() != before:
+        raise RuntimeError("the plain path launched a kernel")
+
+
+def rhs_weights(dyn):
+    from fiode_tpu_torch.models.dynamics import densify_dynamics_params
+    from fiode_tpu_torch.ops.fused_rhs import pack_rhs_params
+    dense = densify_dynamics_params(dyn)
+    return pack_rhs_params(dense["hidden_to_mlp"][0], dense["mlp_to_mlp"][0],
+                           dense["mlp_to_hidden"][0], dense["mlp_to_mlp"][1],
+                           dense["mlp_to_hidden"][1])
+
+
+def simplex_rows(B, n, seed, dev):
+    h = torch.rand(B, n, generator=gen(seed))
+    return (h / h.sum(-1, keepdim=True)).to(dev)
+
+
+def kink_free_cotangent(h, xc, p, dyn, seed):
+    """A unit-normal cotangent (B, n) that is zero on rows near a kink (see
+    KINK_MARGIN); returns it and the number of such rows."""
+    from fiode_tpu_torch.ops.fused_rhs import RhsParams
+    from fiode_tpu_torch.ops.simplex_qp import cone_project_mu
+    d = [t.double() for t in (h, xc, *p)]
+    h64, xc64, q = d[0], d[1], RhsParams(*d[2:])
+    pre1 = h64 @ q.W1.T + xc64
+    pre2 = torch.relu(pre1) @ q.W2.T + q.b2
+    f = torch.relu(pre2) @ q.W3.T + q.b3
+    lower = -dyn.alpha_1 * (torch.exp(dyn.sigma_1 * h64) - 1.0)
+    margin = (f - cone_project_mu(lower, f, 60)) - lower
+    near = ((pre1.abs() < KINK_MARGIN).any(-1)
+            | (pre2.abs() < KINK_MARGIN).any(-1)
+            | (margin.abs() < ACTIVE_MARGIN).any(-1))
+    g = torch.randn(h.shape, generator=gen(seed)).to(h.device)
+    return g * (~near)[:, None], int(near.sum())
+
+
+def k2_phase(dyn, dev) -> dict:
+    """[7 K2] the fused RHS backward against rhs_vjp_reference."""
+    from fiode_tpu_torch.ops.fused_rhs import fused_rhs_vjp, rhs_vjp_reference
+    args = (dyn.alpha_1, dyn.sigma_1, dyn.qp_iters)
+    with torch.no_grad():
+        p = rhs_weights(dyn)
+        n, m = p.W3.shape
+        h = simplex_rows(K2_BATCH, n, 30, dev)
+        xc = torch.randn(K2_BATCH, m, generator=gen(31)).to(dev)
+        g, n_near = kink_free_cotangent(h, xc, p, dyn, 32)
+        rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, *args)
+        err = 0.0
+        for weight_grads in (True, False):
+            dh, dxc, dp = fused_rhs_vjp(h, xc, g, p, *args, weight_grads)
+            dh2, dxc2, dp2 = fused_rhs_vjp(h, xc, g, p, *args, weight_grads)
+            torch.cuda.synchronize()
+            got = [dh, dxc] + list(dp or ())
+            again = [dh2, dxc2] + list(dp2 or ())
+            if (dp is None) == weight_grads:
+                raise RuntimeError("K2 ignored weight_grads")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError("two K2 launches differ")
+            e_rows = max((dh - rh).abs().max().item(),
+                         (dxc - rxc).abs().max().item())
+            err = max(err, e_rows)
+            e_rel = 0.0
+            for name, a, b in zip(("dW1", "dW2", "dW3", "db2", "db3"),
+                                  dp or (), rp):
+                e = ((a - b).abs().max() / b.abs().max()).item()
+                e_rel = max(e_rel, e)
+            log(f"[7 K2] B={K2_BATCH} n={n} mlp={m} weight_grads={weight_grads}: "
+                f"dh/dxc max|d|={e_rows:.3e}, weights max|d|/max={e_rel:.3e} "
+                f"(tol {K2_TOL:g}); repeat bit-identical; {n_near} rows near a "
+                f"kink given a zero cotangent")
+            if not (e_rows <= K2_TOL and e_rel <= K2_TOL):
+                raise RuntimeError(f"K2 disagrees with its plain version: "
+                                   f"{e_rows} {e_rel}")
+
+        h = simplex_rows(TIME_BATCH, n, 33, dev)
+        xc = torch.randn(TIME_BATCH, m, generator=gen(34)).to(dev)
+        g = torch.randn(TIME_BATCH, n, generator=gen(35)).to(dev)
+        plain = cuda_ms(lambda: rhs_vjp_reference(h, xc, g, p, *args), 20)
+        ms = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, True), 20)
+        ms_x = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, False), 20)
+    log(f"[7 time] K2 B={TIME_BATCH}: kernel {ms:.4f} ms with weight grads, "
+        f"{ms_x:.4f} ms without | plain {plain:.4f} ms")
+    return {"err": err, "ms": ms, "ms_no_weights": ms_x, "plain_ms": plain}
+
+
+def k3_backward_phase(model, dev) -> dict:
+    """[8 K3 backward] dx of each conv layer by K3 on Q^H against the
+    autograd VJP of the plain dense-DFT apply."""
+    from fiode_tpu_torch.ops.cayley import cayley_conv_kernel
+    from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply
+    err = 0.0
+    for i, (ci, co, k, n) in enumerate(CONV_SHAPES):
+        conv = model.backbone.convs[i]
+        with torch.no_grad():
+            Q = cayley_conv_kernel(conv.weight, conv.alpha, n)
+        Qr, Qi = Q.real.contiguous(), Q.imag.contiguous()
+
+        def grads(B, seed, apply):
+            x = torch.randn(B, ci, n, n, generator=gen(seed)).to(dev)
+            g = torch.randn(B, co, n, n, generator=gen(seed + 1)).to(dev)
+            x.requires_grad_()
+            return lambda: torch.autograd.grad(apply(x, Qr, Qi), x, g)[0]
+
+        kern = grads(K3_BWD_BATCH, 40 + i, fused_freq_apply)
+        before = fused_freq_apply.launches
+        dx = kern()
+        if fused_freq_apply.launches != before + 2:
+            raise RuntimeError("K3 backward did not launch K3 on Q^H")
+        want = grads(K3_BWD_BATCH, 40 + i, plain_freq_apply)()
+        torch.cuda.synchronize()
+        e = (dx - want).abs().max().item()
+        err = max(err, e)
+        t_kern = cuda_ms(grads(K3_BWD_TIME_BATCH, 50 + i, fused_freq_apply), 5)
+        t_plain = cuda_ms(grads(K3_BWD_TIME_BATCH, 50 + i, plain_freq_apply), 5)
+        log(f"[8 K3 bwd] layer {i} dx {co}->{ci} @{n} B={K3_BWD_BATCH}: "
+            f"max|d|={e:.3e} (tol {K3_TOL:g}) | forward + backward at "
+            f"B={K3_BWD_TIME_BATCH}: kernel {t_kern:.3f} ms, plain {t_plain:.3f} ms")
+        if not e <= K3_TOL:
+            raise RuntimeError(f"K3 backward disagrees with the plain VJP: {e}")
+    return {"err": err}
+
+
+@contextlib.contextmanager
+def groupsort_branches(model, out: list):
+    """Append, for each GroupSort call of the backbone's forwards run inside,
+    the branch every pair took (first > second), one row per image."""
+    def hook(module, inputs, output):
+        a = inputs[0]
+        dim = 1 if a.dim() == 4 else a.dim() - 1
+        u, v = a.unflatten(dim, (a.shape[dim] // 2, 2)).unbind(dim + 1)
+        out.append((u > v).reshape(a.shape[0], -1))
+
+    handle = model.backbone.act.register_forward_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def plain_backward(rhs_ctx, g):
+    """_FusedRhsCuda.backward by the plain rhs_vjp_reference (no K2)."""
+    from fiode_tpu_torch.ops.fused_rhs import RhsParams, rhs_vjp_reference
+    alpha_1, sigma_1, _, qp_iters = rhs_ctx.consts
+    h, xc, *w = rhs_ctx.saved_tensors
+    dh, dxc, _ = rhs_vjp_reference(h, xc, g, RhsParams(*w), alpha_1, sigma_1,
+                                   qp_iters)
+    return (dh, dxc) + (None,) * 10
+
+
+def plain_conv_backward(conv_ctx, g):
+    """_FusedFreqApplyCuda.backward in x by the plain dense-DFT VJP."""
+    x, Qr, Qi = conv_ctx.saved_tensors
+    with torch.enable_grad():
+        xq = x.detach().requires_grad_()
+        (dx,) = torch.autograd.grad(plain_freq_apply(xq, Qr, Qi), xq, g)
+    return dx, None, None
+
+
+def grad_solve_phase(model, dev) -> dict:
+    """[9 gradient through the solve] d(mean CE)/dx, CE of h(t_max) against
+    the clean argmax, kernel path against plain path.
+
+    The two forwards differ by float32 round-off (K3 against the dense DFT),
+    enough to flip a GroupSort pair that is a near-tie; the gradient of that
+    image then jumps, correctly, on one side.  So the path-to-path gate
+    holds the images whose GroupSort pairs all took the same branch in both
+    forwards, and a second gate holds every image with one forward shared:
+    the kernel path's graph, differentiated once by K2 and K3 on Q^H and
+    once by their plain VJPs."""
+    from fiode_tpu_torch.attacks.apgd import ce_loss
+    from fiode_tpu_torch.ops.fused_cayley_conv import _FusedFreqApplyCuda
+    from fiode_tpu_torch.ops.fused_rhs import _FusedRhsCuda
+    model.requires_grad_(False)  # as in an attack: gradients in x only
+    x = torch.rand(GRAD_BATCH, 3, 32, 32, generator=gen(60)).to(dev)
+    with torch.no_grad():
+        y = model.predict(x).argmax(-1)
+
+    def loss_and_grad(retain=False):
+        xg = x.clone().requires_grad_()
+        sol = model.solve(xg)
+        loss = ce_loss(sol.ys[-1], y).mean()
+        fwd = counts()
+        (dx,) = torch.autograd.grad(loss, xg, retain_graph=retain)
+        torch.cuda.synchronize()
+        return sol, (xg, loss), dx, fwd
+
+    branches_k, branches_p = [], []
+    reset_counts()
+    with groupsort_branches(model, branches_k):
+        sol_k, (xg, loss_k), dx_k, fwd = loss_and_grad(retain=True)
+    launches = counts()
+    with plain_path(), groupsort_branches(model, branches_p):
+        sol_p, (_, loss_p), dx_p, _ = loss_and_grad()
+    flipped = torch.zeros(GRAD_BATCH, dtype=torch.bool, device=dev)
+    for a, b in zip(branches_k, branches_p, strict=True):
+        flipped |= (a != b).any(-1)
+    n_flipped = int(flipped.sum())
+    d_loss = abs(loss_k.item() - loss_p.item())
+    scale = dx_p.abs().max().item()
+    row_err = (dx_k - dx_p).abs().reshape(GRAD_BATCH, -1).amax(-1) / scale
+    d_dx = row_err[~flipped].max().item()
+
+    # one forward (the kernel path's), its backward by the plain VJPs
+    before = counts()
+    with mock.patch.object(_FusedRhsCuda, "backward",
+                           staticmethod(plain_backward)), \
+            mock.patch.object(_FusedFreqApplyCuda, "backward",
+                              staticmethod(plain_conv_backward)):
+        (dx_shared,) = torch.autograd.grad(loss_k, xg)
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("the plain backward launched a kernel")
+    d_shared = ((dx_k - dx_shared).abs().max() / dx_shared.abs().max()).item()
+    log(f"[9 grad] B={GRAD_BATCH} t_max={model.t_max}: kernel loss "
+        f"{loss_k.item():.6f} nfe {sol_k.nfe} attempts {sol_k.attempts} | plain "
+        f"loss {loss_p.item():.6f} nfe {sol_p.nfe} | |d loss|={d_loss:.3e} (tol "
+        f"{GRAD_LOSS_TOL:g}) | max|dx|={scale:.3e}; max|d dx|/max|dx| on the "
+        f"{GRAD_BATCH - n_flipped} images with no GroupSort flip {d_dx:.3e}, "
+        f"over all {row_err.max().item():.3e} ({n_flipped} flipped) | shared "
+        f"forward, kernel vs plain backward: {d_shared:.3e} (tol {GRAD_DX_TOL:g}) "
+        f"| launches forward {fwd}, forward+backward {launches}")
+    if not torch.isfinite(dx_k).all() or not scale > 0:
+        raise RuntimeError("gradient through the solve is non-finite or zero")
+    if not (d_loss <= GRAD_LOSS_TOL and d_dx <= GRAD_DX_TOL
+            and d_shared <= GRAD_DX_TOL):
+        raise RuntimeError(f"kernel-path gradient disagrees: {d_loss} {d_dx} "
+                           f"{d_shared}")
+    if n_flipped > GRAD_MAX_FLIPPED * GRAD_BATCH:
+        raise RuntimeError(f"{n_flipped} images took another GroupSort branch "
+                           "on the kernel path")
+    if sol_k.nfe != sol_p.nfe:
+        raise RuntimeError(f"NFE differs: kernel {sol_k.nfe} plain {sol_p.nfe}")
+    if sol_k.attempts >= model.max_steps:
+        raise RuntimeError("the solve used its whole step budget")
+    want = {"fused_rhs": sol_k.nfe, "fused_rhs_backward": sol_k.nfe,
+            "fused_freq_apply": 2 * len(CONV_SHAPES)}
+    if launches != want or fwd["fused_freq_apply"] != len(CONV_SHAPES):
+        raise RuntimeError(f"launches {launches} (forward {fwd}), want {want}")
+
+    ms = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        ctx = plain_path() if which == "plain" else contextlib.nullcontext()
+        with ctx:
+            t0 = time.perf_counter()
+            loss_and_grad()
+            ms[which].append(1e3 * (time.perf_counter() - t0))
+    log(f"[9 time] loss + d/dx B={GRAD_BATCH}: kernel {min(ms['kernel']):.1f} ms "
+        f"| plain {min(ms['plain']):.1f} ms (runs {ms})")
+    return {"launches": launches}
+
+
+def attack_phase(model, dev, n_iter=ATTACK_ITERS,
+                 square_queries=SQUARE_QUERIES) -> dict:
+    """[10 attack] run_autoattack with the standard suite, then APGD-CE
+    alone on the kernel path and on the plain path."""
+    from fiode_tpu_torch.attacks.apgd import apgd_ce
+    from fiode_tpu_torch.experiment import BudgetedForward, run_autoattack
+    x = torch.rand(ATTACK_IMAGES, 3, 32, 32, generator=gen(70)).to(dev)
+    with torch.no_grad():
+        y = model.predict(x).argmax(-1)
+    reset_counts()
+    summary, x_adv = run_autoattack(
+        model, x, y, eps=ATTACK_EPS, norm="L2", n_iter=n_iter,
+        square_queries=square_queries, batch_size=ATTACK_IMAGES, seed=SEED)
+    torch.cuda.synchronize()
+    launches = counts()
+    robust = torch.zeros(ATTACK_IMAGES, dtype=torch.bool, device=dev)
+    robust[summary["robust_idx"]] = True
+    dist = torch.linalg.norm((x_adv - x).reshape(ATTACK_IMAGES, -1), dim=-1)
+    with torch.no_grad():
+        pred = model.predict(x_adv).argmax(-1)
+    for name, sec in summary["attack_seconds"].items():
+        log(f"[10 attack] {name}: {sec:.2f} s, {ATTACK_IMAGES / sec:.2f} images/s")
+    log(f"[10 attack] {summary['attacks']} n_iter={n_iter} square_queries="
+        f"{square_queries} eps={ATTACK_EPS} on {ATTACK_IMAGES} images: robust "
+        f"{len(summary['robust_idx'])}/{ATTACK_IMAGES} in {summary['seconds']:.1f} s "
+        f"({summary['images_per_sec']:.3f} images/s) | max attempts "
+        f"{summary['max_attempts']} of max_steps {model.max_steps} (probe "
+        f"{summary['probe_attempts']}), {summary['forwards']} forwards | "
+        f"max L2 {dist.max().item():.5f} | launches {launches}")
+    if not torch.isfinite(x_adv).all():
+        raise RuntimeError("a returned adversarial is non-finite")
+    if not (dist.max() <= ATTACK_EPS * (1 + 1e-5) and x_adv.min() >= 0
+            and x_adv.max() <= 1):
+        raise RuntimeError("a returned adversarial left the ball or the box")
+    if not (pred[~robust] != y[~robust]).all():
+        raise RuntimeError("a validated success is not misclassified")
+    if not (dist[robust] == 0).all():
+        raise RuntimeError("a robust image was modified")
+    if summary["max_attempts"] >= model.max_steps:
+        raise RuntimeError("an attack forward reached max_steps")
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"a kernel was not launched by the attacks: {launches}")
+
+    model.requires_grad_(False)
+    ms = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        ctx = plain_path() if which == "plain" else contextlib.nullcontext()
+        with ctx:
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apgd_ce(BudgetedForward(model), x, y, eps=ATTACK_EPS, norm="L2",
+                    n_iter=n_iter, generator=g)
+            torch.cuda.synchronize()
+            ms[which].append(time.perf_counter() - t0)
+    log(f"[10 time] apgd-ce alone n_iter={n_iter} B={ATTACK_IMAGES}: kernel "
+        f"{min(ms['kernel']):.2f} s | plain {min(ms['plain']):.2f} s (runs "
+        f"{ {k: [round(v, 2) for v in vs] for k, vs in ms.items()} })")
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on a GPU")
     if not (ROOT / "fiode_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: no fiode_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(ROOT))
-    from fiode_tpu_torch.entry import flagship
-    from fiode_tpu_torch.models import ivp, layers
-    from fiode_tpu_torch.models.dynamics import densify_dynamics_params
+    from fiode_tpu_torch.entry import certify_model, flagship
     from fiode_tpu_torch.ops._build import BUILD_DIR, load_library
     from fiode_tpu_torch.ops.cayley import apply_freq_matrices, cayley_conv_kernel
     from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply
-    from fiode_tpu_torch.ops.fused_rhs import fused_rhs, pack_rhs_params, rhs_reference
+    from fiode_tpu_torch.ops.fused_rhs import fused_rhs, rhs_reference
 
     dev = torch.device("cuda", 0)
 
@@ -90,13 +456,14 @@ def main() -> None:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    for name in ("fused_rhs", "fused_cayley_conv"):
-        load_library(name)
+    sources = ("fused_rhs", "fused_cayley_conv")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        list(pool.map(load_library, sources))
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for p in sorted(BUILD_DIR.glob("*.log"))
              for ln in p.read_text().splitlines()
              if "registers" in ln or "spill" in ln]
-    log(f"[2 build] K1 + K3 built in {build_s:.1f} s into {BUILD_DIR}")
+    log(f"[2 build] K1 + K2 + K3 built in {build_s:.1f} s into {BUILD_DIR}")
     for ln in ptxas:
         log(f"    ptxas: {ln}")
 
@@ -105,12 +472,8 @@ def main() -> None:
 
     # 3. K1 vs plain ----------------------------------------------------------
     with torch.no_grad():
-        dense = densify_dynamics_params(model.dynamics)
-        p = pack_rhs_params(dense["hidden_to_mlp"][0], dense["mlp_to_mlp"][0],
-                            dense["mlp_to_hidden"][0], dense["mlp_to_mlp"][1],
-                            dense["mlp_to_hidden"][1])
-        h = torch.rand(K1_BATCH, N_CLASSES, generator=gen(1))
-        h = (h / h.sum(-1, keepdim=True)).to(dev)
+        p = rhs_weights(model.dynamics)
+        h = simplex_rows(K1_BATCH, N_CLASSES, 1, dev)
         xc = torch.randn(K1_BATCH, MLP, generator=gen(2)).to(dev)
         dyn = model.dynamics
         for sn in (False, True):
@@ -146,16 +509,6 @@ def main() -> None:
                 raise RuntimeError(f"K3 disagrees with its plain version: {err}")
 
     # 5. end to end -----------------------------------------------------------
-    def plain_freq_apply(x, Qr, Qi):
-        return apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft")
-
-    @contextlib.contextmanager
-    def plain_path():
-        """Run the solve with both kernels replaced by their plain versions."""
-        with mock.patch.object(ivp, "fused_rhs", rhs_reference), \
-                mock.patch.object(layers, "fused_freq_apply", plain_freq_apply):
-            yield
-
     def checked_solve(x):
         sol = model.solve(x)
         if sol.n_accepted + sol.n_rejected >= model.max_steps:
@@ -164,17 +517,12 @@ def main() -> None:
 
     x = torch.rand(E2E_BATCH, 3, 32, 32, generator=gen(3)).to(dev)
     with torch.no_grad():
-        fused_rhs.launches = 0
-        fused_freq_apply.launches = 0
+        reset_counts()
         sol_k = checked_solve(x)
         torch.cuda.synchronize()
-        launches = {"fused_rhs": fused_rhs.launches,
-                    "fused_freq_apply": fused_freq_apply.launches}
+        launches = counts()
         with plain_path():
             sol_p = checked_solve(x)
-        if fused_rhs.launches != launches["fused_rhs"] or \
-                fused_freq_apply.launches != launches["fused_freq_apply"]:
-            raise RuntimeError("the plain path launched a kernel")
     yk, yp = sol_k.ys[-1], sol_p.ys[-1]
     e2e_err = (yk - yp).abs().max().item()
     row_sum_err = (yk.sum(-1) - 1).abs().max().item()
@@ -219,8 +567,7 @@ def main() -> None:
             f"{TIME_BATCH * nfe[which] / (ms / 1e3):.4g} sample-NFE/s")
 
     with torch.no_grad():
-        h = torch.rand(TIME_BATCH, N_CLASSES, generator=gen(5))
-        h = (h / h.sum(-1, keepdim=True)).to(dev)
+        h = simplex_rows(TIME_BATCH, N_CLASSES, 5, dev)
         xc = torch.randn(TIME_BATCH, MLP, generator=gen(6)).to(dev)
         args = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, True, dyn.qp_iters)
         k1_plain = cuda_ms(lambda: rhs_reference(h, xc, p, *args), 20)
@@ -240,17 +587,37 @@ def main() -> None:
                 f"{t_kern:.3f} ms | plain dft {t_plain:.3f} ms | fft {t_fft:.3f} ms")
             del x
 
+    # 7-10. gradients through the solve and the attack suite ---------------------
+    cmodel = certify_model(t_max=T_MAX, max_steps=MAX_STEPS,
+                           generator=gen(SEED)).to(dev)
+    k2 = k2_phase(cmodel.dynamics, dev)
+    k3b = k3_backward_phase(cmodel, dev)
+    grad = grad_solve_phase(cmodel, dev)
+    attack = attack_phase(cmodel, dev)
+
+    by_phase = {name: {"5 forward solve": launches.get(name, 0),
+                       "9 gradient through the solve": grad["launches"][name],
+                       "10 autoattack": attack["launches"][name]}
+                for name in attack["launches"]}
     kernels = [
         {"name": "fused_rhs", "route": "cuda",
          "source": "fiode_tpu_torch/csrc/fused_rhs.cu",
          "replaces": "fiode_tpu/ops/fused_rhs.py:140",
-         "launches": launches["fused_rhs"], "max_abs_err": errs["fused_rhs"],
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "launches": attack["launches"]["fused_rhs"],
+         "launches_by_phase": by_phase["fused_rhs"],
+         "max_abs_err": errs["fused_rhs"], "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "fused_rhs_backward", "route": "cuda",
+         "source": "fiode_tpu_torch/csrc/fused_rhs.cu",
+         "replaces": "fiode_tpu/ops/fused_rhs.py:197",
+         "launches": attack["launches"]["fused_rhs_backward"],
+         "launches_by_phase": by_phase["fused_rhs_backward"],
+         "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
         {"name": "fused_freq_apply", "route": "cuda",
          "source": "fiode_tpu_torch/csrc/fused_cayley_conv.cu",
          "replaces": "fiode_tpu/ops/fused_cayley_conv.py:61",
-         "launches": launches["fused_freq_apply"],
-         "max_abs_err": errs["fused_freq_apply"],
+         "launches": attack["launches"]["fused_freq_apply"],
+         "launches_by_phase": by_phase["fused_freq_apply"],
+         "max_abs_err": max(errs["fused_freq_apply"], k3b["err"]),
          "ms": k3_ms, "plain_ms": k3_plain},
     ]
     log(smi)

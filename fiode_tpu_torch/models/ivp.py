@@ -7,6 +7,11 @@
 There is one solve path, the JAX package's fused one: the dynamics are
 densified once per solve and the input injection xc = x_feat U^T + bU + b1
 is computed once, then every stage calls ``fused_rhs`` (kernel K1 on CUDA).
+
+The solve is differentiable: xc keeps its graph into the backbone, and on
+CUDA the RHS backward is kernel K2 and each conv's backward a K3 launch on
+Q^H.  K2 covers scale_nominal=False only; differentiating a scale_nominal
+solve on CUDA raises (that gradient arrives with training, Slice D).
 """
 from __future__ import annotations
 
@@ -75,7 +80,8 @@ class NeuralODEClassifier(nn.Module):
 
     def solve(self, x, ts=None) -> OdeSolution:
         """Integrate from h0 and return the OdeSolution over ``ts``
-        (default [0, t_max])."""
+        (default [0, t_max]); ``attempts`` on it counts the steps tried,
+        which reach ``max_steps`` when the budget ran out."""
         dyn = self.dynamics
         feats = self.features(x)
         p, xc = self._fused_setup(feats)

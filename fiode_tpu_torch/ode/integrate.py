@@ -14,6 +14,13 @@ torchdiffeq semantics, as in the JAX package:
 state's device, so accept/reject decisions match the float32 JAX solver.
 The host reads one value pair per attempted step (the error ratio and the
 candidate time), which decides acceptance.
+
+Under autograd the loop is differentiable as it runs: every RHS evaluation,
+the step sizes (initial-step heuristic and controller), the error ratios
+and the Hermite output stay in the graph, none detached, so the gradient is
+the one ``jax.grad`` takes through the JAX package's bounded ``scan`` mode
+(its masked trips past t_max contribute nothing).  There is no scan mode
+here: the loop attempts only the steps it needs.
 """
 from __future__ import annotations
 
@@ -35,6 +42,11 @@ class OdeSolution(NamedTuple):
     nfe: int          # RHS evaluations
     n_accepted: int
     n_rejected: int
+
+    @property
+    def attempts(self) -> int:
+        """Steps attempted; equal to ``max_steps`` when the budget ran out."""
+        return self.n_accepted + self.n_rejected
 
 
 def _rms(r: torch.Tensor) -> torch.Tensor:

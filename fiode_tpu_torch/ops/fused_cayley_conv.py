@@ -5,8 +5,15 @@
 ``apply_freq_matrices(x, Qr + i Qi, impl="dft")``: forward rDFT, one complex
 (co, ci) matrix per frequency, inverse rDFT.  On a CPU tensor it runs that
 plain dense-DFT version; on a CUDA tensor it launches kernel K3
-(``csrc/fused_cayley_conv.cu``, two launches), which has no backward kernel
-yet.
+(``csrc/fused_cayley_conv.cu``, two launches).
+
+Backward on CUDA: the map is linear in x, and its VJP is the transposed
+frequency application, dx = apply(g, Q^H) with Q^H the conjugate transpose
+of each frequency's matrix: the dense rDFT and its inverse are adjoint up to
+a per-frequency weight that commutes with Q.  So dx is one more K3 launch on
+(g, Qr^T, -Qi^T).  The JAX package has no backward kernel either (its VJP is
+the jnp reference path); dQ, needed only when Q requires grad (training),
+goes through the VJP of the plain dense-DFT version, as in JAX.
 """
 from __future__ import annotations
 
@@ -79,14 +86,23 @@ def _launch(x, Qr, Qi):
 class _FusedFreqApplyCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, Qr, Qi):
+        ctx.save_for_backward(x, Qr, Qi)
         return _launch(x, Qr, Qi)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "fused_freq_apply on CUDA has no backward kernel yet: gradients "
-            "through the backbone arrive with Slice C (attacks)"
-        )
+        x, Qr, Qi = ctx.saved_tensors
+        dx = dQr = dQi = None
+        if ctx.needs_input_grad[0]:
+            # K3 on Q^H: (F, ci, co) views, so the output has ci channels
+            dx = _launch(g, Qr.transpose(1, 2), -Qi.transpose(1, 2))
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            with torch.enable_grad():
+                qr = Qr.detach().requires_grad_()
+                qi = Qi.detach().requires_grad_()
+                y = apply_freq_matrices(x, torch.complex(qr, qi), impl="dft")
+                dQr, dQi = torch.autograd.grad(y, (qr, qi), g)
+        return dx, dQr, dQi
 
 
 def fused_freq_apply(x: torch.Tensor, Qr: torch.Tensor,
@@ -95,7 +111,8 @@ def fused_freq_apply(x: torch.Tensor, Qr: torch.Tensor,
     (B, co, n, n).
 
     A CPU tensor takes the plain dense-DFT version; a CUDA tensor launches
-    K3 (and adds one to ``fused_freq_apply.launches``) or raises.
+    K3 (and adds one to ``fused_freq_apply.launches``) or raises.  On CUDA
+    the backward in x launches K3 once more, on Q^H (and counts it).
     """
     if x.device.type == "cpu":
         return apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft")

@@ -1,8 +1,8 @@
 """The committed checkpoint run_data/certified_full/ckpt/best (KWLarge
 GroupSort backbone, ReLU dynamics, scale_nominal off), restored by the JAX
 package and bridged into the port, predicts what JAX predicts on the first
-test images; and importing the port pulls in neither jax, flax nor
-fiode_tpu."""
+test images; and importing the port, its attacks and its experiment
+module included, pulls in neither jax, flax nor fiode_tpu."""
 import subprocess
 import sys
 from pathlib import Path
@@ -89,7 +89,8 @@ def test_checkpoint_predict_matches_jax(restored):
 def test_import_leaves_jax_out():
     code = (
         "import sys, fiode_tpu_torch, fiode_tpu_torch.ops.fused_rhs, "
-        "fiode_tpu_torch.ops.fused_cayley_conv\n"
+        "fiode_tpu_torch.ops.fused_cayley_conv, fiode_tpu_torch.attacks, "
+        "fiode_tpu_torch.experiment\n"
         "bad = [m for m in ('jax', 'flax', 'orbax', 'fiode_tpu') "
         "if m in sys.modules]\n"
         "print(bad)\n"

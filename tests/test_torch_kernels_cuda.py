@@ -14,11 +14,26 @@ import torch
 
 from fiode_tpu_torch.ops.cayley import apply_freq_matrices, cayley_conv_kernel
 from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply
-from fiode_tpu_torch.ops.fused_rhs import fused_rhs, pack_rhs_params, rhs_reference
+from fiode_tpu_torch.ops.fused_rhs import (
+    RhsParams,
+    fused_rhs,
+    fused_rhs_vjp,
+    pack_rhs_params,
+    rhs_reference,
+    rhs_vjp_reference,
+)
+from fiode_tpu_torch.ops.simplex_qp import cone_project_mu
 
 A1, S1, A2 = 100.0, 0.02, 20.0
 K1_TOL = 2e-4
+K2_TOL = 1e-4
 K3_TOL = 1e-4
+# rows whose float64 pre-activations lie this close to a ReLU kink, or whose
+# projection lanes this close to the active-set boundary, get a zero
+# cotangent in the K2 checks: there the gradient jumps, and two correct
+# float32 evaluations (the kernel's and cuBLAS's sum orders) may take
+# different sides
+KINK_MARGIN, ACTIVE_MARGIN = 1e-5, 1e-4
 
 
 @pytest.fixture
@@ -63,11 +78,83 @@ def test_fused_rhs_kernel_matches_plain(cuda, B, n, mlp, scale_nominal):
     assert torch.equal(got, again)
 
 
-def test_fused_rhs_kernel_has_no_backward(cuda):
+def _kink_free_cotangent(h, xc, p, seed):
+    """A unit-normal cotangent (B, n), zero on rows near a kink."""
+    d = [t.double() for t in (h, xc, *p)]
+    h64, xc64, q = d[0], d[1], RhsParams(*d[2:])
+    pre1 = h64 @ q.W1.T + xc64
+    pre2 = torch.relu(pre1) @ q.W2.T + q.b2
+    f = torch.relu(pre2) @ q.W3.T + q.b3
+    lower = -A1 * (torch.exp(S1 * h64) - 1.0)
+    margin = (f - cone_project_mu(lower, f, 60)) - lower
+    near = ((pre1.abs() < KINK_MARGIN).any(-1)
+            | (pre2.abs() < KINK_MARGIN).any(-1)
+            | (margin.abs() < ACTIVE_MARGIN).any(-1))
+    g = torch.randn(h.shape, generator=torch.Generator().manual_seed(seed))
+    g = g.to(h.device) * (~near)[:, None]
+    return g, int(near.sum())
+
+
+def _assert_k2_matches_plain(got, want):
+    dh, dxc, dp = got
+    rh, rxc, rp = want
+    torch.testing.assert_close(dh, rh, atol=K2_TOL, rtol=0)
+    torch.testing.assert_close(dxc, rxc, atol=K2_TOL, rtol=0)
+    if dp is not None:
+        for a, b in zip(dp, rp):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=K2_TOL * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("B,n,mlp", [(4096 + 17, 10, 128), (37, 10, 128),
+                                     (100, 3, 16), (65, 32, 96)])
+def test_fused_rhs_vjp_kernel_matches_plain(cuda, B, n, mlp):
+    h, xc, p = _rhs_inputs(B, n, mlp, B + n + 1, cuda)
+    g, _ = _kink_free_cotangent(h, xc, p, B)
+    want = rhs_vjp_reference(h, xc, g, p, A1, S1, 30)
+    for weight_grads in (True, False):
+        before = fused_rhs_vjp.launches
+        got = fused_rhs_vjp(h, xc, g, p, A1, S1, 30, weight_grads)
+        assert fused_rhs_vjp.launches == before + 1
+        assert (got[2] is None) != weight_grads
+        _assert_k2_matches_plain(got, want)
+        # no atomics: repeated launches are bit-identical
+        again = fused_rhs_vjp(h, xc, g, p, A1, S1, 30, weight_grads)
+        for a, b in zip(got[:2] + tuple(got[2] or ()),
+                        again[:2] + tuple(again[2] or ())):
+            assert torch.equal(a, b)
+
+
+def test_fused_rhs_vjp_refuses_what_shared_memory_cannot_hold(cuda):
+    # weight-gradient partials of n = 32, mlp = 160 need ~360 KB per block
+    h, xc, p = _rhs_inputs(65, 32, 160, 0, cuda)
+    g = torch.randn(65, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="fused_rhs_vjp kernel failed"):
+        fused_rhs_vjp(h, xc, g, p, A1, S1, 30, True)
+    # without them the block fits
+    dh, dxc, _ = fused_rhs_vjp(h, xc, g, p, A1, S1, 30, False)
+    rh, rxc, _ = rhs_vjp_reference(h, xc, g, p, A1, S1, 30)
+    assert dh.shape == rh.shape and dxc.shape == rxc.shape
+
+
+def test_fused_rhs_backward_launches_k2(cuda):
+    h, xc, p = _rhs_inputs(300, 10, 128, 7, cuda)
+    g, _ = _kink_free_cotangent(h, xc, p, 8)
+    leaves = [t.clone().requires_grad_() for t in (h, xc, *p)]
+    out = fused_rhs(leaves[0], leaves[1], RhsParams(*leaves[2:]), A1, S1, A2,
+                    False, 30)
+    before = fused_rhs_vjp.launches
+    grads = torch.autograd.grad(out, leaves, g)
+    assert fused_rhs_vjp.launches == before + 1
+    rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, A1, S1, 30)
+    _assert_k2_matches_plain((grads[0], grads[1], grads[2:]), (rh, rxc, rp))
+
+
+def test_fused_rhs_backward_refuses_scale_nominal(cuda):
     h, xc, p = _rhs_inputs(8, 10, 32, 0, cuda)
     h.requires_grad_()
-    with pytest.raises(NotImplementedError, match="K2"):
-        fused_rhs(h, xc, p, A1, S1, A2, False, 30).sum().backward()
+    with pytest.raises(NotImplementedError, match="Slice D"):
+        fused_rhs(h, xc, p, A1, S1, A2, True, 30).sum().backward()
 
 
 def test_fused_rhs_kernel_rejects_bad_layout(cuda):
@@ -93,11 +180,37 @@ def test_fused_freq_apply_kernel_matches_plain(cuda, ci, co, k, n, B):
     assert torch.equal(got, again)
 
 
-def test_fused_freq_apply_kernel_has_no_backward(cuda):
-    x, Qr, Qi = _conv_inputs(3, 5, 3, 8, 2, 0, cuda)
+@pytest.mark.parametrize("ci,co,k,n", [
+    (3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16), (256, 64, 2, 8)])
+def test_fused_freq_apply_backward_is_k3_on_q_herm(cuda, ci, co, k, n):
+    # the backward applies the transposed shapes co -> ci, including
+    # 32 -> 3 and 64 -> 256, which no forward layer gives K3
+    x, Qr, Qi = _conv_inputs(ci, co, k, n, 64, ci + co, cuda)
+    g = torch.randn(64, co, n, n, generator=torch.Generator().manual_seed(1))
+    g = g.to(cuda)
     x.requires_grad_()
-    with pytest.raises(NotImplementedError):
-        fused_freq_apply(x, Qr, Qi).sum().backward()
+    y = fused_freq_apply(x, Qr, Qi)
+    before = fused_freq_apply.launches
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert fused_freq_apply.launches == before + 1
+    xp = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(
+        apply_freq_matrices(xp, torch.complex(Qr, Qi), impl="dft"), xp, g)
+    torch.testing.assert_close(dx, want, atol=K3_TOL, rtol=0)
+
+
+def test_fused_freq_apply_backward_in_q_is_the_plain_vjp(cuda):
+    x, Qr, Qi = _conv_inputs(4, 8, 3, 8, 5, 2, cuda)
+    g = torch.randn(5, 8, 8, 8, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, Qr, Qi)]
+    got = torch.autograd.grad(fused_freq_apply(*leaves), leaves, g)
+    ref = [t.clone().requires_grad_() for t in (x, Qr, Qi)]
+    want = torch.autograd.grad(
+        apply_freq_matrices(ref[0], torch.complex(ref[1], ref[2]),
+                            impl="dft"), ref, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=K3_TOL * float(b.abs().max()),
+                                   rtol=0)
 
 
 def test_wrappers_reject_other_devices():
@@ -107,6 +220,8 @@ def test_wrappers_reject_other_devices():
                           for s in ((32, 10), (32, 32), (10, 32), (32,), (10,))))
     with pytest.raises(ValueError, match="device"):
         fused_rhs(h, xc, p, A1, S1, A2)
+    with pytest.raises(ValueError, match="device"):
+        fused_rhs_vjp(h, xc, h, p, A1, S1)
     x = torch.zeros(1, 3, 8, 8, device="meta")
     Q = torch.zeros(40, 5, 3, device="meta")
     with pytest.raises(ValueError, match="device"):
