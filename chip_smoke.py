@@ -10,18 +10,24 @@ through the kernels and through the plain path, checking that the kernels
 carried each and timing both:
 
   * phases 3-6: the flagship forward solve (KWLarge Cayley backbone ->
-    simplex neural ODE, dopri5), K1 and K3;
+    simplex neural ODE, dopri5), K1 and K3; phase 4 also holds K3 at the
+    transposed flagship shapes and at the MNIST KWLarge's, and phase 6 times
+    each conv layer's K3 forward and transposed launch against the plain
+    dense DFT, torch.fft and the layer's bound;
   * phases 7-10: gradients through the solve of the certified configuration
-    (ReLU dynamics, scale_nominal off, t_max 0.1, max_steps 8) and the
-    AutoAttack standard suite on it (apgd-ce, apgd-t, fab-t, square; 512
-    images, L2 eps 0.141, 100 iterations, 5000 Square queries): K2, K3 on
-    Q^H as the conv backward, and K1 and K3 in every attack forward.
+    (ReLU dynamics, scale_nominal off, t_max 0.1, max_steps 8) and of the
+    flagship (scale_nominal on), and the AutoAttack standard suite on the
+    certified configuration (apgd-ce, apgd-t, fab-t, square; 512 images,
+    L2 eps 0.141, 100 iterations, 5000 Square queries): K2 (scale_nominal
+    off and on), K3 on Q^H as the conv backward, and K1 and K3 in every
+    attack forward.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
 
-The second-to-last line of stdout is a JSON object describing each kernel,
-the last line the contract object
+The second-to-last line of stdout is a JSON object describing each kernel
+(its time, launches, error, plain-version time, bound and library-call
+time), the last line the contract object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -46,6 +52,17 @@ K1_TOL, K3_TOL, E2E_TOL = 2e-4, 1e-4, 1e-3
 # space_to_depth for the strided ones)
 CONV_SHAPES = ((3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16),
                (256, 64, 2, 8))
+# the same for the MNIST KWLarge (configs/certify/mnist_certify.yaml:
+# KWLargeBackbone(in_channels=1, img_size=28))
+MNIST_CONV_SHAPES = ((1, 32, 3, 28), (128, 32, 2, 14), (32, 64, 3, 14),
+                     (256, 64, 2, 7))
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): float32
+# outside the tensor cores, TF32 on the tensor cores, HBM3; a kernel's bound
+# is the larger of its bytes (each input read once, each output written
+# once) over the memory rate and its flops over the peak rate of the unit
+# that runs them: K1 and K2 run on float32 lanes; K3's mix runs on the
+# tensor cores in 3xTF32, three TF32 products per float32 product
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 # phases 7-10: the certified configuration and the attack protocol of
 # run_data/certified_full/autoattack_full_standard_512_tmax01.json
 T_MAX, MAX_STEPS = 0.1, 8
@@ -84,6 +101,82 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, flops: float, rate: float = FP32_FLOPS) -> tuple:
+    """(least milliseconds, "bytes" or "operations") for flops at rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES, flops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def conv_bound(B, ci, co, n) -> tuple:
+    """Bound of one K3 apply: x and y once, Q once; the mix's 8 F co ci
+    flops per image at the 3xTF32 rate (a third of the TF32 peak); the
+    transforms' flops are not counted."""
+    F = n * (n // 2 + 1)
+    return bound_ms(4 * B * (ci + co) * n * n + 8 * F * co * ci,
+                    8 * B * F * co * ci, TF32_FLOPS / 3)
+
+
+def rhs_flops(n, m, qp_iters, backward=False, weight_grads=False) -> int:
+    """Flops per batch row of K1 (and of K2, which recomputes K1): the three
+    products and the bisection; backward adds d pre2, d pre1 and dh, and
+    the weight gradients dW3, dW2 and dW1."""
+    fwd = 2 * n * m + 2 * m * m + 2 * m * n + 3 * n * qp_iters
+    if not backward:
+        return fwd
+    grads = 2 * n * m + 2 * m * m + 2 * m * n
+    return fwd + grads * (2 if weight_grads else 1)
+
+
+def rhs_bound(B, n, m, qp_iters, backward=False, weight_grads=False):
+    weights = 4 * (2 * m * n + m * m + m + n)
+    rows = 4 * B * ((n + m + n + n + m) if backward else (n + m + n))
+    return bound_ms(rows + weights * (2 if weight_grads else 1),
+                    B * rhs_flops(n, m, qp_iters, backward, weight_grads))
+
+
+def k3_stage_ms(run, x, iters: int = 3) -> dict:
+    """Device milliseconds per apply of each of K3's three launches
+    (forward transform, mix, inverse transform), from torch.profiler; empty
+    if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    run(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run(x)
+        torch.cuda.synchronize()
+    stages = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        for stage, tag in (("irdft", "irdft"), ("mix", "mix_kernel"), ("rdft", "rdft")):
+            if tag in e.key:
+                stages[stage] = stages.get(stage, 0.0) + us / 1e3 / iters
+                break
+    return stages
+
+
+def device_breakdown(fn, top: int = 8) -> tuple:
+    """Run fn once under torch.profiler: (wall ms, device-busy ms, the top
+    kernels as (name, ms)), summed over the device's own kernel events
+    only, so that no time is counted twice through the ops that launched
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            rows.append((e.key, us / 1e3))
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(ms for _, ms in rows), rows[:top]
 
 
 def counts() -> dict:
@@ -133,7 +226,7 @@ def simplex_rows(B, n, seed, dev):
     return (h / h.sum(-1, keepdim=True)).to(dev)
 
 
-def kink_free_cotangent(h, xc, p, dyn, seed):
+def kink_free_cotangent(h, xc, p, dyn, seed, scale_nominal=False):
     """A unit-normal cotangent (B, n) that is zero on rows near a kink (see
     KINK_MARGIN); returns it and the number of such rows."""
     from fiode_tpu_torch.ops.fused_rhs import RhsParams
@@ -144,6 +237,8 @@ def kink_free_cotangent(h, xc, p, dyn, seed):
     pre2 = torch.relu(pre1) @ q.W2.T + q.b2
     f = torch.relu(pre2) @ q.W3.T + q.b3
     lower = -dyn.alpha_1 * (torch.exp(dyn.sigma_1 * h64) - 1.0)
+    if scale_nominal:
+        f = (dyn.alpha_2 * (1.0 - h64) - lower) * torch.sigmoid(f) + lower
     margin = (f - cone_project_mu(lower, f, 60)) - lower
     near = ((pre1.abs() < KINK_MARGIN).any(-1)
             | (pre2.abs() < KINK_MARGIN).any(-1)
@@ -153,18 +248,20 @@ def kink_free_cotangent(h, xc, p, dyn, seed):
 
 
 def k2_phase(dyn, dev) -> dict:
-    """[7 K2] the fused RHS backward against rhs_vjp_reference."""
+    """[7 K2] the fused RHS backward against rhs_vjp_reference, with the
+    squash (scale_nominal) off, as in the certified dynamics, and on."""
     from fiode_tpu_torch.ops.fused_rhs import fused_rhs_vjp, rhs_vjp_reference
-    args = (dyn.alpha_1, dyn.sigma_1, dyn.qp_iters)
     with torch.no_grad():
         p = rhs_weights(dyn)
         n, m = p.W3.shape
         h = simplex_rows(K2_BATCH, n, 30, dev)
         xc = torch.randn(K2_BATCH, m, generator=gen(31)).to(dev)
-        g, n_near = kink_free_cotangent(h, xc, p, dyn, 32)
-        rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, *args)
         err = 0.0
-        for weight_grads in (True, False):
+        for sn, weight_grads in ((False, True), (False, False), (True, True),
+                                 (True, False)):
+            args = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, sn, dyn.qp_iters)
+            g, n_near = kink_free_cotangent(h, xc, p, dyn, 32, sn)
+            rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, *args)
             dh, dxc, dp = fused_rhs_vjp(h, xc, g, p, *args, weight_grads)
             dh2, dxc2, dp2 = fused_rhs_vjp(h, xc, g, p, *args, weight_grads)
             torch.cuda.synchronize()
@@ -182,7 +279,8 @@ def k2_phase(dyn, dev) -> dict:
                                   dp or (), rp):
                 e = ((a - b).abs().max() / b.abs().max()).item()
                 e_rel = max(e_rel, e)
-            log(f"[7 K2] B={K2_BATCH} n={n} mlp={m} weight_grads={weight_grads}: "
+            log(f"[7 K2] B={K2_BATCH} n={n} mlp={m} scale_nominal={sn} "
+                f"weight_grads={weight_grads}: "
                 f"dh/dxc max|d|={e_rows:.3e}, weights max|d|/max={e_rel:.3e} "
                 f"(tol {K2_TOL:g}); repeat bit-identical; {n_near} rows near a "
                 f"kink given a zero cotangent")
@@ -193,12 +291,21 @@ def k2_phase(dyn, dev) -> dict:
         h = simplex_rows(TIME_BATCH, n, 33, dev)
         xc = torch.randn(TIME_BATCH, m, generator=gen(34)).to(dev)
         g = torch.randn(TIME_BATCH, n, generator=gen(35)).to(dev)
-        plain = cuda_ms(lambda: rhs_vjp_reference(h, xc, g, p, *args), 20)
-        ms = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, True), 20)
-        ms_x = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, False), 20)
-    log(f"[7 time] K2 B={TIME_BATCH}: kernel {ms:.4f} ms with weight grads, "
-        f"{ms_x:.4f} ms without | plain {plain:.4f} ms")
-    return {"err": err, "ms": ms, "ms_no_weights": ms_x, "plain_ms": plain}
+        out = {"err": err}
+        for sn in (False, True):
+            args = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, sn, dyn.qp_iters)
+            plain = cuda_ms(lambda: rhs_vjp_reference(h, xc, g, p, *args), 20)
+            ms = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, True), 20)
+            ms_x = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, False), 20)
+            bw, by = rhs_bound(TIME_BATCH, n, m, dyn.qp_iters, True, True)
+            bx, _ = rhs_bound(TIME_BATCH, n, m, dyn.qp_iters, True, False)
+            log(f"[7 time] K2 B={TIME_BATCH} scale_nominal={sn}: kernel {ms:.4f} "
+                f"ms with weight grads (bound {bw:.4f}), {ms_x:.4f} ms without "
+                f"(bound {bx:.4f}) | plain {plain:.4f} ms")
+            if not sn:  # the certified dynamics, which the attacks run
+                out.update(ms=ms, ms_no_weights=ms_x, plain_ms=plain, bound_ms=bw,
+                           bound_by=by)
+    return out
 
 
 def k3_backward_phase(model, dev) -> dict:
@@ -258,11 +365,26 @@ def groupsort_branches(model, out: list):
 def plain_backward(rhs_ctx, g):
     """_FusedRhsCuda.backward by the plain rhs_vjp_reference (no K2)."""
     from fiode_tpu_torch.ops.fused_rhs import RhsParams, rhs_vjp_reference
-    alpha_1, sigma_1, _, qp_iters = rhs_ctx.consts
     h, xc, *w = rhs_ctx.saved_tensors
-    dh, dxc, _ = rhs_vjp_reference(h, xc, g, RhsParams(*w), alpha_1, sigma_1,
-                                   qp_iters)
+    dh, dxc, _ = rhs_vjp_reference(h, xc, g, RhsParams(*w), *rhs_ctx.consts)
     return (dh, dxc) + (None,) * 10
+
+
+@contextlib.contextmanager
+def plain_backwards():
+    """Differentiate the kernel path's graph with the plain VJPs of K1 and
+    K3 instead of K2 and K3 on Q^H."""
+    from fiode_tpu_torch.ops.fused_cayley_conv import _FusedFreqApplyCuda
+    from fiode_tpu_torch.ops.fused_rhs import _FusedRhsCuda
+    before = counts()
+    with mock.patch.object(_FusedRhsCuda, "backward",
+                           staticmethod(plain_backward)), \
+            mock.patch.object(_FusedFreqApplyCuda, "backward",
+                              staticmethod(plain_conv_backward)):
+        yield
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("the plain backward launched a kernel")
 
 
 def plain_conv_backward(conv_ctx, g):
@@ -286,8 +408,6 @@ def grad_solve_phase(model, dev) -> dict:
     the kernel path's graph, differentiated once by K2 and K3 on Q^H and
     once by their plain VJPs."""
     from fiode_tpu_torch.attacks.apgd import ce_loss
-    from fiode_tpu_torch.ops.fused_cayley_conv import _FusedFreqApplyCuda
-    from fiode_tpu_torch.ops.fused_rhs import _FusedRhsCuda
     model.requires_grad_(False)  # as in an attack: gradients in x only
     x = torch.rand(GRAD_BATCH, 3, 32, 32, generator=gen(60)).to(dev)
     with torch.no_grad():
@@ -319,15 +439,8 @@ def grad_solve_phase(model, dev) -> dict:
     d_dx = row_err[~flipped].max().item()
 
     # one forward (the kernel path's), its backward by the plain VJPs
-    before = counts()
-    with mock.patch.object(_FusedRhsCuda, "backward",
-                           staticmethod(plain_backward)), \
-            mock.patch.object(_FusedFreqApplyCuda, "backward",
-                              staticmethod(plain_conv_backward)):
+    with plain_backwards():
         (dx_shared,) = torch.autograd.grad(loss_k, xg)
-    torch.cuda.synchronize()
-    if counts() != before:
-        raise RuntimeError("the plain backward launched a kernel")
     d_shared = ((dx_k - dx_shared).abs().max() / dx_shared.abs().max()).item()
     log(f"[9 grad] B={GRAD_BATCH} t_max={model.t_max}: kernel loss "
         f"{loss_k.item():.6f} nfe {sol_k.nfe} attempts {sol_k.attempts} | plain "
@@ -364,6 +477,49 @@ def grad_solve_phase(model, dev) -> dict:
             ms[which].append(1e3 * (time.perf_counter() - t0))
     log(f"[9 time] loss + d/dx B={GRAD_BATCH}: kernel {min(ms['kernel']):.1f} ms "
         f"| plain {min(ms['plain']):.1f} ms (runs {ms})")
+    return {"launches": launches}
+
+
+def flagship_grad_phase(model, dev) -> dict:
+    """[9 flagship grad] d(mean CE)/dx through the flagship's solve
+    (scale_nominal on, t_max 1): K2 launched once per differentiated RHS
+    evaluation, and the kernel backward against the plain backward on one
+    shared forward."""
+    from fiode_tpu_torch.attacks.apgd import ce_loss
+    model.requires_grad_(False)
+    x = torch.rand(GRAD_BATCH, 3, 32, 32, generator=gen(61)).to(dev)
+    with torch.no_grad():
+        y = model.predict(x).argmax(-1)
+    xg = x.clone().requires_grad_()
+    reset_counts()
+    sol = model.solve(xg)
+    loss = ce_loss(sol.ys[-1], y).mean()
+    fwd = counts()
+    (dx_k,) = torch.autograd.grad(loss, xg, retain_graph=True)
+    torch.cuda.synchronize()
+    launches = counts()
+    with plain_backwards():
+        (dx_p,) = torch.autograd.grad(loss, xg)
+    scale = dx_p.abs().max().item()
+    d_shared = ((dx_k - dx_p).abs().max() / scale).item()
+    k2 = launches["fused_rhs_backward"]
+    log(f"[9 flagship grad] B={GRAD_BATCH} t_max={model.t_max} scale_nominal="
+        f"{model.dynamics.scale_nominal}: loss {loss.item():.6f} nfe {sol.nfe} "
+        f"accepted {sol.n_accepted} rejected {sol.n_rejected} | K2 launches "
+        f"{k2} | max|dx|={scale:.3e}; shared forward, kernel vs plain "
+        f"backward: {d_shared:.3e} (tol {GRAD_DX_TOL:g}) | launches forward "
+        f"{fwd}, forward+backward {launches}")
+    if not torch.isfinite(dx_k).all() or not scale > 0:
+        raise RuntimeError("flagship gradient is non-finite or zero")
+    if not d_shared <= GRAD_DX_TOL:
+        raise RuntimeError(f"flagship kernel backward disagrees: {d_shared}")
+    if sol.attempts >= model.max_steps:
+        raise RuntimeError("the solve used its whole step budget")
+    # every evaluation is differentiated unless a rejected step's are not
+    if not (k2 == sol.nfe if sol.n_rejected == 0 else 0 < k2 <= sol.nfe):
+        raise RuntimeError(f"K2 launched {k2} times for NFE {sol.nfe}")
+    if launches["fused_freq_apply"] != 2 * len(CONV_SHAPES):
+        raise RuntimeError(f"K3 launches {launches}")
     return {"launches": launches}
 
 
@@ -435,9 +591,10 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: no fiode_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(ROOT))
     from fiode_tpu_torch.entry import certify_model, flagship
+    from fiode_tpu_torch.models.backbones import KWLargeBackbone
     from fiode_tpu_torch.ops._build import BUILD_DIR, load_library
     from fiode_tpu_torch.ops.cayley import apply_freq_matrices, cayley_conv_kernel
-    from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply
+    from fiode_tpu_torch.ops.fused_cayley_conv import _launch, fused_freq_apply
     from fiode_tpu_torch.ops.fused_rhs import fused_rhs, rhs_reference
 
     dev = torch.device("cuda", 0)
@@ -467,7 +624,7 @@ def main() -> None:
     for ln in ptxas:
         log(f"    ptxas: {ln}")
 
-    model = flagship(N_CLASSES, MLP, generator=gen(SEED)).to(dev)
+    model = flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev)
     errs = {"fused_rhs": 0.0, "fused_freq_apply": 0.0}
 
     # 3. K1 vs plain ----------------------------------------------------------
@@ -489,24 +646,48 @@ def main() -> None:
                 raise RuntimeError(f"K1 disagrees with its plain version: {err}")
 
     # 4. K3 vs plain ----------------------------------------------------------
-    q_by_shape = {}
+    def conv_qs(backbone, shapes):
+        qs = []
+        for i, (ci, co, k, n) in enumerate(shapes):
+            conv = backbone.convs[i]
+            if tuple(conv.weight.shape) != (co, ci, k, k):
+                raise RuntimeError(f"conv {i} weight is {tuple(conv.weight.shape)}")
+            qs.append(cayley_conv_kernel(conv.weight, conv.alpha, n))
+        return qs
+
+    def check_k3(tag, x, Q):
+        """K3 on x with Q (F, co, ci) against the dense DFT, and a repeat."""
+        Qr, Qi = Q.real.contiguous(), Q.imag.contiguous()
+        got = fused_freq_apply(x, Qr, Qi)
+        again = fused_freq_apply(x, Qr, Qi)
+        want = apply_freq_matrices(x, Q, impl="dft")
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        errs["fused_freq_apply"] = max(errs["fused_freq_apply"], err)
+        log(f"[4 K3] {tag} {x.shape[1]}->{Q.shape[1]} @{x.shape[-1]} "
+            f"B={x.shape[0]}: max|d|={err:.3e} (tol {K3_TOL:g})")
+        if not err <= K3_TOL:
+            raise RuntimeError(f"K3 disagrees with its plain version: {err}")
+        if not torch.equal(got, again):
+            raise RuntimeError("two K3 launches differ")
+
     with torch.no_grad():
+        q_by_shape = dict(enumerate(conv_qs(model.backbone, CONV_SHAPES)))
         for i, (ci, co, k, n) in enumerate(CONV_SHAPES):
-            w = model.backbone.convs[i].weight
-            if tuple(w.shape) != (co, ci, k, k):
-                raise RuntimeError(f"conv {i} weight is {tuple(w.shape)}")
-            Q = cayley_conv_kernel(w, model.backbone.convs[i].alpha, n)
-            q_by_shape[i] = Q
+            Q = q_by_shape[i]
             x = torch.randn(K3_BATCH, ci, n, n, generator=gen(10 + i)).to(dev)
-            got = fused_freq_apply(x, Q.real.contiguous(), Q.imag.contiguous())
-            want = apply_freq_matrices(x, Q, impl="dft")
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            errs["fused_freq_apply"] = max(errs["fused_freq_apply"], err)
-            log(f"[4 K3] layer {i} ci={ci} co={co} n={n} B={K3_BATCH}: "
-                f"max|d|={err:.3e} (tol {K3_TOL:g})")
-            if not err <= K3_TOL:
-                raise RuntimeError(f"K3 disagrees with its plain version: {err}")
+            check_k3(f"layer {i}", x, Q)
+            # the transposed shape the conv backward gives K3, as a forward
+            g = torch.randn(K3_BATCH, co, n, n, generator=gen(14 + i)).to(dev)
+            check_k3(f"layer {i} transposed", g,
+                     Q.conj().transpose(1, 2).resolve_conj())
+        mnist = KWLargeBackbone(out_dim=N_CLASSES, act="GroupSort",
+                                in_channels=1, img_size=28,
+                                generator=gen(SEED)).to(dev)
+        for i, Q in enumerate(conv_qs(mnist, MNIST_CONV_SHAPES)):
+            ci, co, k, n = MNIST_CONV_SHAPES[i]
+            x = torch.randn(K3_BATCH, ci, n, n, generator=gen(18 + i)).to(dev)
+            check_k3(f"MNIST layer {i}", x, Q)
 
     # 5. end to end -----------------------------------------------------------
     def checked_solve(x):
@@ -546,7 +727,7 @@ def main() -> None:
     # 6. timing ---------------------------------------------------------------
     xt = torch.rand(TIME_BATCH, 3, 32, 32, generator=gen(4)).to(dev)
     solve_ms = {"kernel": [], "plain": []}
-    nfe = {}
+    nfe, end = {}, {}
     with torch.no_grad():
         checked_solve(xt[:256])  # warm-up of both paths
         with plain_path():
@@ -559,12 +740,27 @@ def main() -> None:
                 sol = checked_solve(xt)
                 torch.cuda.synchronize()
                 solve_ms[which].append(1e3 * (time.perf_counter() - t0))
-                nfe[which] = sol.nfe
+                nfe[which], end[which] = sol.nfe, sol.ys[-1]
+    # the timed solves at full batch are held to phase 5's gates too
+    big_err = (end["kernel"] - end["plain"]).abs().max().item()
+    log(f"[6 e2e] B={TIME_BATCH}: kernel nfe={nfe['kernel']} plain "
+        f"nfe={nfe['plain']} | max|d|={big_err:.3e} (tol {E2E_TOL:g})")
+    if not (torch.isfinite(end["kernel"]).all() and big_err <= E2E_TOL):
+        raise RuntimeError(f"B={TIME_BATCH}: kernel path disagrees: {big_err}")
+    if nfe["kernel"] != nfe["plain"]:
+        raise RuntimeError(f"B={TIME_BATCH}: NFE differs: {nfe}")
     for which in ("kernel", "plain"):
         ms = min(solve_ms[which])
         log(f"[6 time] solve B={TIME_BATCH} {which}: {ms:.1f} ms/solve "
             f"(runs {[round(v, 1) for v in solve_ms[which]]}), nfe={nfe[which]}, "
             f"{TIME_BATCH * nfe[which] / (ms / 1e3):.4g} sample-NFE/s")
+    with torch.no_grad():
+        wall, busy, top = device_breakdown(lambda: checked_solve(xt))
+    log(f"[6 profile] solve B={TIME_BATCH} kernel path under torch.profiler: "
+        f"wall {wall:.1f} ms, device busy "
+        + (f"{busy:.1f} ms (idle share {1 - busy / wall:.2f}); costliest on "
+           "the device: " + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top)
+           if busy > 0 else "not measured (the profiler saw no device time)"))
 
     with torch.no_grad():
         h = simplex_rows(TIME_BATCH, N_CLASSES, 5, dev)
@@ -572,53 +768,90 @@ def main() -> None:
         args = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, True, dyn.qp_iters)
         k1_plain = cuda_ms(lambda: rhs_reference(h, xc, p, *args), 20)
         k1_ms = cuda_ms(lambda: fused_rhs(h, xc, p, *args), 20)
-        log(f"[6 time] K1 B={TIME_BATCH}: kernel {k1_ms:.4f} ms | plain {k1_plain:.4f} ms")
-        k3_ms = k3_plain = 0.0
+        k1_bound, k1_by = rhs_bound(TIME_BATCH, N_CLASSES, MLP, dyn.qp_iters)
+        log(f"[6 time] K1 B={TIME_BATCH}: kernel {k1_ms:.4f} ms | plain "
+            f"{k1_plain:.4f} ms | bound {k1_bound:.4f} ms ({k1_by})")
+        # each layer's K3 forward, and its transposed launch (the conv
+        # backward: K3 on Q^H through swapped strides), against the plain
+        # dense DFT, torch.fft and the layer's bound
+        k3 = {d: {"kernel": 0.0, "plain": 0.0, "fft": 0.0, "bound": 0.0,
+                  "bytes": 0.0, "operations": 0.0}
+              for d in ("forward", "transposed")}
         for i, (ci, co, k, n) in enumerate(CONV_SHAPES):
             Q = q_by_shape[i]
             Qr, Qi = Q.real.contiguous(), Q.imag.contiguous()
-            x = torch.randn(TIME_BATCH, ci, n, n, generator=gen(20 + i)).to(dev)
-            t_plain = cuda_ms(lambda: apply_freq_matrices(x, Q, impl="dft"), 5)
-            t_fft = cuda_ms(lambda: apply_freq_matrices(x, Q, impl="fft"), 5)
-            t_kern = cuda_ms(lambda: fused_freq_apply(x, Qr, Qi), 5)
-            k3_ms += t_kern
-            k3_plain += t_plain
-            log(f"[6 time] K3 layer {i} {ci}->{co} @{n} B={TIME_BATCH}: kernel "
-                f"{t_kern:.3f} ms | plain dft {t_plain:.3f} ms | fft {t_fft:.3f} ms")
-            del x
+            QH = Q.conj().transpose(1, 2).resolve_conj().contiguous()
+            for d, cin, cout, Qd, run in (
+                    ("forward", ci, co, Q,
+                     lambda x: fused_freq_apply(x, Qr, Qi)),
+                    ("transposed", co, ci, QH,
+                     lambda x: _launch(x, Qr, Qi, adjoint=True))):
+                x = torch.randn(TIME_BATCH, cin, n, n, generator=gen(20 + i)).to(dev)
+                t = {impl: cuda_ms(lambda: apply_freq_matrices(x, Qd, impl=impl), 5)
+                     for impl in ("dft", "fft")}
+                t["plain"] = t.pop("dft")
+                t["kernel"] = cuda_ms(lambda: run(x), 5)
+                stages = k3_stage_ms(run, x)
+                t["bound"], by = conv_bound(TIME_BATCH, cin, cout, n)
+                for key in t:
+                    k3[d][key] += t[key]
+                k3[d][by] += t["bound"]  # the bound's share of each kind
+                log(f"[6 time] K3 layer {i} {d} {cin}->{cout} @{n} B={TIME_BATCH}: "
+                    f"kernel {t['kernel']:.3f} ms | plain dft {t['plain']:.3f} ms | "
+                    f"fft {t['fft']:.3f} ms | bound {t['bound']:.3f} ms ({by}), "
+                    f"{100 * t['bound'] / t['kernel']:.1f}% of it | launches "
+                    f"(profiler) "
+                    + (", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+                       or "not measured"))
+                del x
+                torch.cuda.empty_cache()
+        for d, t in k3.items():
+            log(f"[6 time] K3 {d}, 4 layers B={TIME_BATCH}: kernel "
+                f"{t['kernel']:.3f} ms | plain dft {t['plain']:.3f} ms | fft "
+                f"{t['fft']:.3f} ms | bound {t['bound']:.3f} ms, "
+                f"{100 * t['bound'] / t['kernel']:.1f}% of it")
+        if not k3["forward"]["kernel"] < k3["forward"]["fft"]:
+            log("[6 time] K3's forward is slower than torch.fft")
 
     # 7-10. gradients through the solve and the attack suite ---------------------
     cmodel = certify_model(t_max=T_MAX, max_steps=MAX_STEPS,
-                           generator=gen(SEED)).to(dev)
+                           generator=gen(SEED), device=dev)
     k2 = k2_phase(cmodel.dynamics, dev)
     k3b = k3_backward_phase(cmodel, dev)
     grad = grad_solve_phase(cmodel, dev)
+    fgrad = flagship_grad_phase(model, dev)
     attack = attack_phase(cmodel, dev)
 
     by_phase = {name: {"5 forward solve": launches.get(name, 0),
                        "9 gradient through the solve": grad["launches"][name],
+                       "9 flagship gradient": fgrad["launches"][name],
                        "10 autoattack": attack["launches"][name]}
                 for name in attack["launches"]}
+    kf = k3["forward"]
     kernels = [
         {"name": "fused_rhs", "route": "cuda",
          "source": "fiode_tpu_torch/csrc/fused_rhs.cu",
          "replaces": "fiode_tpu/ops/fused_rhs.py:140",
          "launches": attack["launches"]["fused_rhs"],
          "launches_by_phase": by_phase["fused_rhs"],
-         "max_abs_err": errs["fused_rhs"], "ms": k1_ms, "plain_ms": k1_plain},
+         "max_abs_err": errs["fused_rhs"], "ms": k1_ms, "plain_ms": k1_plain,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "fused_rhs_backward", "route": "cuda",
          "source": "fiode_tpu_torch/csrc/fused_rhs.cu",
          "replaces": "fiode_tpu/ops/fused_rhs.py:197",
          "launches": attack["launches"]["fused_rhs_backward"],
          "launches_by_phase": by_phase["fused_rhs_backward"],
-         "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+         "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "fused_freq_apply", "route": "cuda",
          "source": "fiode_tpu_torch/csrc/fused_cayley_conv.cu",
          "replaces": "fiode_tpu/ops/fused_cayley_conv.py:61",
          "launches": attack["launches"]["fused_freq_apply"],
          "launches_by_phase": by_phase["fused_freq_apply"],
          "max_abs_err": max(errs["fused_freq_apply"], k3b["err"]),
-         "ms": k3_ms, "plain_ms": k3_plain},
+         "ms": kf["kernel"], "plain_ms": kf["plain"], "bound_ms": kf["bound"],
+         "bound_by": max(("bytes", "operations"), key=kf.get),
+         "library_ms": kf["fft"]},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

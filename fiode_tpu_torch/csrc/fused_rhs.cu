@@ -8,13 +8,19 @@
 //   [scale_nominal] f = (alpha_2 (1 - h) - lower) sigmoid(f) + lower
 //   mu by a fixed-iteration bisection;  out = max(f - mu, lower)
 //
-// K2 replaces fiode_tpu/ops/fused_rhs.py::_make_pallas_backward (the VJP for
-// scale_nominal off).  Per row it recomputes the forward with K1's own device
-// code (same fmaf order, same bisection), so mu and therefore the active set
-// are bit-identical to the forward's, then applies
-//   d f~    = free (g - mean_free g),  d lower = active (g - mean_free g)
+// K2 replaces fiode_tpu/ops/fused_rhs.py::_make_pallas_backward (the VJP,
+// which the TPU kernel had for scale_nominal off; here also for the squash).
+// Per row it recomputes the forward with K1's own device code (same fmaf
+// order, same bisection), so mu and therefore the active set are
+// bit-identical to the forward's, then applies
+//   d f     = free (g - mean_free g),  d lower = active (g - mean_free g)
+//   [scale_nominal, f = (u - lower) s + lower, s = sigmoid(f~),
+//    u = alpha_2 (1 - h)]
+//           d f~ = d f (u - lower) s (1 - s),  d lower += d f (1 - s),
+//           d u = d f s;   otherwise d f~ = d f, d u = 0
 //   d pre2  = (d f~ W3) [z2 > 0];      d pre1 = (d pre2 W2) [z1 > 0]
-//   dh      = d lower (-alpha_1 sigma_1 exp(sigma_1 h)) + d pre1 W1
+//   dh      = d lower (-alpha_1 sigma_1 exp(sigma_1 h)) - alpha_2 d u
+//             + d pre1 W1
 //   dxc     = d pre1
 // and, when asked, the weight gradients summed over the batch:
 //   dW1 = d pre1^T h, dW2 = d pre2^T z1, dW3 = d f~^T z2, db2, db3.
@@ -35,10 +41,16 @@
 // Determinism: every output is summed by one thread in a fixed order.  The
 // TPU kernel accumulated weight gradients with += across its sequential grid;
 // here blocks run concurrently, so each block sums its own tiles into a
-// partial in shared memory (fixed tile and row order), writes it to its own
-// workspace slot, and a second launch adds the slots in slot order.  No
-// atomics, so results are bit-reproducible from run to run on one card.  No
-// fast-math: expf and an exact 1 / (1 + expf(-x)).
+// partial (fixed tile and row order) in its own workspace slot in device
+// memory (132 slots of 76 KB at the flagship, which fit in L2), and a second
+// launch adds the slots in slot order.  Each tile's rows are summed first
+// and the slot's value, read before that sum, is added to it.  Shared memory
+// then holds only the weights and the tile scratch, at every shape that fits
+// at all.  No atomics, so results are bit-reproducible from run to run on
+// one card.  No fast-math: expf and an exact 1 / (1 + expf(-x)).
+//
+// The squash is a template parameter of K2, so the certified dynamics'
+// path (squash off) compiles as if it did not exist.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -246,13 +258,13 @@ fused_rhs_kernel(const float* __restrict__ h, const float* __restrict__ xc,
   }
 }
 
-// Backward scratch beyond the forward tile: dft and dhb (kRows, n), dp2
-// (kRows, ms); with weight gradients also the block's partials dW1 (m, n),
-// dW2 (m, m), dW3 (n, m), db2 (m), db3 (n), laid out as the output.
+// Floats of the weight gradients dW1 (m, n), dW2 (m, m), dW3 (n, m),
+// db2 (m), db3 (n), laid out as the output and as one workspace slot.
 __host__ __device__ size_t grad_floats(int n, int m) {
   return (size_t)m * n + (size_t)m * m + (size_t)n * m + m + n;
 }
 
+template <bool kSquash>
 __global__ void __launch_bounds__(kThreads)
 fused_rhs_backward_kernel(
     const float* __restrict__ h, const float* __restrict__ xc,
@@ -260,8 +272,8 @@ fused_rhs_backward_kernel(
     const float* __restrict__ W2, const float* __restrict__ W3,
     const float* __restrict__ b2, const float* __restrict__ b3,
     float* __restrict__ dh, float* __restrict__ dxc, float* __restrict__ ws,
-    int B, int n, int m, float alpha_1, float sigma_1, int qp_iters,
-    int weight_grads) {
+    int B, int n, int m, float alpha_1, float sigma_1, float alpha_2,
+    int qp_iters, int weight_grads) {
   extern __shared__ float smem[];
   const int ms = m + 1;
   const int tid = threadIdx.x;
@@ -272,12 +284,13 @@ fused_rhs_backward_kernel(
   float* dhb = dft + kRows * n;   // barrier part of dh (kRows, n)
   float* dp2 = dhb + kRows * n;   // d pre2 (kRows, ms)
   float* dp1 = t.z2;              // d pre1 overwrites z2 once dW3 is taken
-  float* pw1 = dp2 + kRows * ms;  // this block's partial sums
+  const int wlen = static_cast<int>(grad_floats(n, m));
+  // this block's partial sums, in its own slot
+  float* pw1 = ws + (size_t)blockIdx.x * wlen;
   float* pw2 = pw1 + m * n;
   float* pw3 = pw2 + m * m;
   float* pb2 = pw3 + n * m;
   float* pb3 = pb2 + m;
-  const int wlen = static_cast<int>(grad_floats(n, m));
 
   load_weights(W1, W2, W3, b2, b3, n, m, w);
   if (weight_grads) {
@@ -297,7 +310,8 @@ fused_rhs_backward_kernel(
       if (r < nr) {
         float lower[kMaxN], nom[kMaxN];
         const float mu = project_row(t.hs + r * n, t.ft + r * n, n, alpha_1,
-                                     sigma_1, 0.f, 0, qp_iters, lower, nom);
+                                     sigma_1, alpha_2, kSquash, qp_iters,
+                                     lower, nom);
         const float* gr = g + (size_t)(row0 + r) * n;
         float gsum = 0.f;
         int n_free = 0;
@@ -315,9 +329,19 @@ fused_rhs_backward_kernel(
             const bool active = (nom[k] - mu) < lower[k];
             const float d = gr[k] - corr;
             const float hk = t.hs[r * n + k];
-            dft[r * n + k] = active ? 0.f : d;
+            const float df = active ? 0.f : d;  // d of the nominal f
+            float dl = active ? d : 0.f;        // d of lower
+            float dft_k = df, du = 0.f;
+            if constexpr (kSquash) {
+              const float sg = 1.f / (1.f + expf(-t.ft[r * n + k]));
+              const float up = alpha_2 * (1.f - hk);
+              dft_k = df * (up - lower[k]) * sg * (1.f - sg);
+              dl += df * (1.f - sg);
+              du = df * sg;
+            }
+            dft[r * n + k] = dft_k;
             dhb[r * n + k] =
-                active ? d * (-alpha_1 * sigma_1 * expf(sigma_1 * hk)) : 0.f;
+                dl * (-alpha_1 * sigma_1 * expf(sigma_1 * hk)) - alpha_2 * du;
           }
         }
       } else {
@@ -344,22 +368,26 @@ fused_rhs_backward_kernel(
     __syncthreads();
 
     if (weight_grads) {
-      // dW3[c][j] += sum_r d f~[r][c] z2[r][j];  db3, db2: row sums
+      // dW3[c][j] += sum_r d f~[r][c] z2[r][j];  db3, db2: row sums.  The
+      // slot's value is read before the tile's sum, which hides its latency.
       for (int i = tid; i < n * m; i += kThreads) {
         const int c = i / m, j = i % m;
-        float acc = pw3[i];
+        const float prev = pw3[i];
+        float acc = 0.f;
         for (int r = 0; r < nr; ++r) acc = fmaf(dft[r * n + c], t.z2[r * ms + j], acc);
-        pw3[i] = acc;
+        pw3[i] = prev + acc;
       }
       for (int j = tid; j < m; j += kThreads) {
-        float acc = pb2[j];
+        const float prev = pb2[j];
+        float acc = 0.f;
         for (int r = 0; r < nr; ++r) acc += dp2[r * ms + j];
-        pb2[j] = acc;
+        pb2[j] = prev + acc;
       }
       for (int c = tid; c < n; c += kThreads) {
-        float acc = pb3[c];
+        const float prev = pb3[c];
+        float acc = 0.f;
         for (int r = 0; r < nr; ++r) acc += dft[r * n + c];
-        pb3[c] = acc;
+        pb3[c] = prev + acc;
       }
     }
     __syncthreads();  // z2 is overwritten by d pre1 below
@@ -388,16 +416,18 @@ fused_rhs_backward_kernel(
       // dW2[j][k] += sum_r d pre2[r][j] z1[r][k]
       for (int i = tid; i < m * m; i += kThreads) {
         const int j = i / m, k = i % m;
-        float acc = pw2[i];
+        const float prev = pw2[i];
+        float acc = 0.f;
         for (int r = 0; r < nr; ++r) acc = fmaf(dp2[r * ms + j], t.z1[r * ms + k], acc);
-        pw2[i] = acc;
+        pw2[i] = prev + acc;
       }
       // dW1[k][c] += sum_r d pre1[r][k] h[r][c]
       for (int i = tid; i < m * n; i += kThreads) {
         const int k = i / n, c = i % n;
-        float acc = pw1[i];
+        const float prev = pw1[i];
+        float acc = 0.f;
         for (int r = 0; r < nr; ++r) acc = fmaf(dp1[r * ms + k], t.hs[r * n + c], acc);
-        pw1[i] = acc;
+        pw1[i] = prev + acc;
       }
     }
 
@@ -409,11 +439,6 @@ fused_rhs_backward_kernel(
       dh[(size_t)row0 * n + i] = dhb[i] + acc;
     }
     __syncthreads();  // the next tile rewrites every tile buffer
-  }
-
-  if (weight_grads) {
-    float* slot = ws + (size_t)blockIdx.x * wlen;
-    for (int i = tid; i < wlen; i += kThreads) slot[i] = pw1[i];
   }
 }
 
@@ -432,12 +457,10 @@ size_t forward_smem_bytes(int n, int m) {
   return sizeof(float) * (weights_floats(n, m) + tile_floats(n, m));
 }
 
-size_t backward_smem_bytes(int n, int m, int weight_grads) {
+size_t backward_smem_bytes(int n, int m) {
   const size_t ms = m + 1;
-  size_t floats = weights_floats(n, m) + tile_floats(n, m) +
-                  (size_t)kRows * n * 2 + (size_t)kRows * ms;
-  if (weight_grads) floats += grad_floats(n, m);
-  return sizeof(float) * floats;
+  return sizeof(float) * (weights_floats(n, m) + tile_floats(n, m) +
+                          (size_t)kRows * n * 2 + (size_t)kRows * ms);
 }
 
 int sm_count(int* sms) {
@@ -455,6 +478,15 @@ extern "C" {
 const char* fused_rhs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// Shared memory a block of K1 (backward = 0) or K2 (backward = 1) needs,
+// and the most a block may have.  A shape needing more is refused.
+long long fused_rhs_smem_bytes(int n, int m, int backward) {
+  return static_cast<long long>(backward ? backward_smem_bytes(n, m)
+                                         : forward_smem_bytes(n, m));
+}
+
+long long fused_rhs_smem_limit() { return static_cast<long long>(kSmemLimit); }
 
 // Floats in one weight-gradient slot (and in the packed weight-gradient
 // output): dW1 (m, n), dW2 (m, m), dW3 (n, m), db2 (m), db3 (n).
@@ -491,7 +523,7 @@ int fused_rhs_forward(const float* h, const float* xc, const float* W1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// VJP of fused_rhs_forward with scale_nominal off, for the cotangent g (B, n):
+// VJP of fused_rhs_forward for the cotangent g (B, n):
 // writes dh (B, n) and dxc (B, m).  If dw is not null it also writes the
 // weight gradients packed as [dW1 (m, n) | dW2 (m, m) | dW3 (n, m) | db2 (m)
 // | db3 (n)], using ws (ws_slots slots of fused_rhs_grad_floats(n, m)
@@ -501,8 +533,8 @@ int fused_rhs_backward(const float* h, const float* xc, const float* g,
                        const float* W1, const float* W2, const float* W3,
                        const float* b2, const float* b3, float* dh, float* dxc,
                        float* dw, float* ws, int ws_slots, int B, int n, int m,
-                       float alpha_1, float sigma_1, int qp_iters,
-                       void* stream) {
+                       float alpha_1, float sigma_1, float alpha_2,
+                       int scale_nominal, int qp_iters, void* stream) {
   if (B < 0 || n < 1 || n > kMaxN || m < 1 || qp_iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -514,7 +546,7 @@ int fused_rhs_backward(const float* h, const float* xc, const float* g,
     return static_cast<int>(
         cudaMemsetAsync(dw, 0, sizeof(float) * (size_t)wlen, s));
   }
-  const size_t smem = backward_smem_bytes(n, m, weight_grads);
+  const size_t smem = backward_smem_bytes(n, m);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
   int rc = sm_count(&sms);
@@ -524,13 +556,15 @@ int fused_rhs_backward(const float* h, const float* xc, const float* g,
   if (weight_grads && (ws == nullptr || ws_slots < grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto kernel = scale_nominal ? fused_rhs_backward_kernel<true>
+                                    : fused_rhs_backward_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_rhs_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_rhs_backward_kernel<<<grid, kThreads, smem, s>>>(
-      h, xc, g, W1, W2, W3, b2, b3, dh, dxc, ws, B, n, m, alpha_1, sigma_1,
-      qp_iters, weight_grads);
+  kernel<<<grid, kThreads, smem, s>>>(h, xc, g, W1, W2, W3, b2, b3, dh, dxc,
+                                      ws, B, n, m, alpha_1, sigma_1, alpha_2,
+                                      qp_iters, weight_grads);
   err = cudaGetLastError();
   if (err != cudaSuccess || !weight_grads) return static_cast<int>(err);
   const int rgrid = (wlen + kReduceThreads - 1) / kReduceThreads;

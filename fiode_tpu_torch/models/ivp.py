@@ -9,9 +9,8 @@ densified once per solve and the input injection xc = x_feat U^T + bU + b1
 is computed once, then every stage calls ``fused_rhs`` (kernel K1 on CUDA).
 
 The solve is differentiable: xc keeps its graph into the backbone, and on
-CUDA the RHS backward is kernel K2 and each conv's backward a K3 launch on
-Q^H.  K2 covers scale_nominal=False only; differentiating a scale_nominal
-solve on CUDA raises (that gradient arrives with training, Slice D).
+CUDA the RHS backward is kernel K2 (scale_nominal off or on) and each
+conv's backward a K3 launch on Q^H.
 """
 from __future__ import annotations
 

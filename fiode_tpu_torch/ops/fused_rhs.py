@@ -13,11 +13,10 @@ ReLU and there is no dropout: the caller rejects any other configuration.
 On a CPU tensor it runs ``rhs_reference`` (plain PyTorch, differentiated by
 autograd).  On a CUDA tensor it launches kernel K1 (``csrc/fused_rhs.cu``)
 and its backward launches kernel K2 (``fused_rhs_vjp``, same source), whose
-plain version is ``rhs_vjp_reference``.  K2 covers scale_nominal off, the
-certify and attack configuration, as the TPU's backward kernel did; a
-gradient through the squashed (scale_nominal) dynamics on CUDA raises.  The
-state keeps its true width n: the TPU's 128-lane padding is not carried
-over.
+plain version is ``rhs_vjp_reference``; both cover scale_nominal off and on.
+A shape whose weights and tile scratch exceed a block's shared memory is
+refused with a ``ValueError`` before the launch.  The state keeps its true
+width n: the TPU's 128-lane padding is not carried over.
 """
 from __future__ import annotations
 
@@ -61,11 +60,11 @@ def rhs_reference(h, xc, p: RhsParams, alpha_1, sigma_1, alpha_2,
     return simplex_cone_project(lower, f_tilde, qp_iters)
 
 
-def rhs_vjp_reference(h, xc, g, p: RhsParams, alpha_1, sigma_1,
-                      qp_iters: int = 30
+def rhs_vjp_reference(h, xc, g, p: RhsParams, alpha_1, sigma_1, alpha_2,
+                      scale_nominal: bool = False, qp_iters: int = 30
                       ) -> Tuple[torch.Tensor, torch.Tensor, RhsParams]:
-    """Plain PyTorch version of kernel K2: the VJP of ``rhs_reference``
-    (scale_nominal off) at cotangent g (B, n), written out.
+    """Plain PyTorch version of kernel K2: the VJP of ``rhs_reference`` at
+    cotangent g (B, n), written out.
 
     Returns (dh (B, n), dxc (B, mlp), RhsParams of the weight gradients
     summed over the batch)."""
@@ -73,17 +72,28 @@ def rhs_vjp_reference(h, xc, g, p: RhsParams, alpha_1, sigma_1,
     z2 = torch.relu(z1 @ p.W2.T + p.b2)
     f_tilde = z2 @ p.W3.T + p.b3
     lower = -alpha_1 * (torch.exp(sigma_1 * h) - 1.0)
-    mu = cone_project_mu(lower, f_tilde, qp_iters)
+    f = f_tilde
+    if scale_nominal:
+        upper = alpha_2 * (1.0 - h)
+        s = torch.sigmoid(f_tilde)
+        f = (upper - lower) * s + lower
+    mu = cone_project_mu(lower, f, qp_iters)
     # active-set VJP of the cone projection (the branch the clamp took)
-    active = (f_tilde - mu) < lower
+    active = (f - mu) < lower
     free = ~active
     n_free = free.sum(-1, keepdim=True).to(g.dtype).clamp_min(1.0)
     corr = torch.where(free, g, 0.0).sum(-1, keepdim=True) / n_free
-    d_ft = torch.where(free, g - corr, 0.0)
+    d_f = torch.where(free, g - corr, 0.0)
     d_lower = torch.where(active, g - corr, 0.0)
+    d_ft, dh_upper = d_f, 0.0
+    if scale_nominal:  # through f = (upper - lower) s + lower
+        d_ft = d_f * (upper - lower) * s * (1.0 - s)
+        d_lower = d_lower + d_f * (1.0 - s)
+        dh_upper = -alpha_2 * d_f * s
     d_pre2 = torch.where(z2 > 0, d_ft @ p.W3, 0.0)
     d_pre1 = torch.where(z1 > 0, d_pre2 @ p.W2, 0.0)
-    dh = d_lower * (-alpha_1 * sigma_1 * torch.exp(sigma_1 * h)) + d_pre1 @ p.W1
+    dh = (d_lower * (-alpha_1 * sigma_1 * torch.exp(sigma_1 * h)) + dh_upper
+          + d_pre1 @ p.W1)
     dp = RhsParams(d_pre1.T @ h, d_pre2.T @ z1, d_ft.T @ z2, d_pre2.sum(0),
                    d_ft.sum(0))
     return dh, d_pre1, dp
@@ -99,8 +109,13 @@ def _lib():
     fn.restype = ctypes.c_int
     fn = lib.fused_rhs_backward
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.fused_rhs_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_rhs_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_rhs_smem_limit.argtypes = []
+    lib.fused_rhs_smem_limit.restype = ctypes.c_longlong
     lib.fused_rhs_grad_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fused_rhs_grad_floats.restype = ctypes.c_int
     lib.fused_rhs_error_string.argtypes = [ctypes.c_int]
@@ -124,6 +139,19 @@ def _check(name, h, want):
             )
 
 
+def _check_smem(lib, name, n, m, backward):
+    """Refuse, before the launch, a shape whose weights and tile scratch do
+    not fit in one block's shared memory."""
+    need = lib.fused_rhs_smem_bytes(n, m, int(backward))
+    limit = lib.fused_rhs_smem_limit()
+    if need > limit:
+        raise ValueError(
+            f"{name}: n = {n}, mlp = {m} needs {need} bytes of shared memory "
+            f"per block for the weights and the tile scratch, more than the "
+            f"{limit} a block can have"
+        )
+
+
 def _want(h, xc, p: RhsParams):
     B, n = h.shape
     m = p.W2.shape[0]
@@ -143,8 +171,9 @@ def _launch(h, xc, p: RhsParams, alpha_1, sigma_1, alpha_2, scale_nominal,
     _check("fused_rhs", h, _want(h, xc, p))
     B, n = h.shape
     m = p.W2.shape[0]
-    out = torch.empty_like(h)
     lib = _lib()
+    _check_smem(lib, "fused_rhs", n, m, False)
+    out = torch.empty_like(h)
     rc = lib.fused_rhs_forward(
         h.data_ptr(), xc.data_ptr(), p.W1.data_ptr(), p.W2.data_ptr(),
         p.W3.data_ptr(), p.b2.data_ptr(), p.b3.data_ptr(), out.data_ptr(),
@@ -157,16 +186,17 @@ def _launch(h, xc, p: RhsParams, alpha_1, sigma_1, alpha_2, scale_nominal,
     return out
 
 
-def _launch_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1, qp_iters,
-                weight_grads):
+def _launch_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1, alpha_2,
+                scale_nominal, qp_iters, weight_grads):
     want = _want(h, xc, p)
     want["g"] = (g, tuple(h.shape))
     _check("fused_rhs_vjp", h, want)
     B, n = h.shape
     m = p.W2.shape[0]
+    lib = _lib()
+    _check_smem(lib, "fused_rhs_vjp", n, m, True)
     dh = torch.empty_like(h)
     dxc = torch.empty_like(xc)
-    lib = _lib()
     dw = ws = None
     slots = 0
     if weight_grads:
@@ -180,7 +210,8 @@ def _launch_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1, qp_iters,
         dh.data_ptr(), dxc.data_ptr(),
         None if dw is None else dw.data_ptr(),
         None if ws is None else ws.data_ptr(), slots, B, n, m,
-        float(alpha_1), float(sigma_1), int(qp_iters),
+        float(alpha_1), float(sigma_1), float(alpha_2),
+        int(bool(scale_nominal)), int(qp_iters),
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     _raise_on(lib, rc, "fused_rhs_vjp")
@@ -193,11 +224,12 @@ def _launch_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1, qp_iters,
     return dh, dxc, RhsParams(*(t.view(s) for t, s in zip(parts, shapes)))
 
 
-def fused_rhs_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1,
-                  qp_iters: int = 30, weight_grads: bool = True
+def fused_rhs_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1, alpha_2,
+                  scale_nominal: bool = False, qp_iters: int = 30,
+                  weight_grads: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[RhsParams]]:
-    """VJP of ``fused_rhs`` (scale_nominal off) at cotangent g (B, n):
-    (dh, dxc, weight gradients or None when ``weight_grads`` is False).
+    """VJP of ``fused_rhs`` at cotangent g (B, n): (dh, dxc, weight
+    gradients or None when ``weight_grads`` is False).
 
     A CPU tensor takes ``rhs_vjp_reference``; a CUDA tensor launches K2
     (and adds one to ``fused_rhs_vjp.launches``) or raises.  Without weight
@@ -205,11 +237,12 @@ def fused_rhs_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1,
     """
     if h.device.type == "cpu":
         dh, dxc, dp = rhs_vjp_reference(h, xc, g, p, alpha_1, sigma_1,
-                                        qp_iters)
+                                        alpha_2, scale_nominal, qp_iters)
         return dh, dxc, dp if weight_grads else None
     if h.device.type != "cuda":
         raise ValueError(f"fused_rhs_vjp: unsupported device {h.device}")
-    return _launch_vjp(h, xc, g, p, alpha_1, sigma_1, qp_iters, weight_grads)
+    return _launch_vjp(h, xc, g, p, alpha_1, sigma_1, alpha_2, scale_nominal,
+                       qp_iters, weight_grads)
 
 
 fused_rhs_vjp.launches = 0
@@ -220,24 +253,16 @@ class _FusedRhsCuda(torch.autograd.Function):
     def forward(ctx, h, xc, W1, W2, W3, b2, b3, alpha_1, sigma_1, alpha_2,
                 scale_nominal, qp_iters):
         ctx.save_for_backward(h, xc, W1, W2, W3, b2, b3)
-        ctx.consts = (alpha_1, sigma_1, scale_nominal, qp_iters)
+        ctx.consts = (alpha_1, sigma_1, alpha_2, scale_nominal, qp_iters)
         return _launch(h, xc, RhsParams(W1, W2, W3, b2, b3), alpha_1,
                        sigma_1, alpha_2, scale_nominal, qp_iters)
 
     @staticmethod
     def backward(ctx, g):
-        alpha_1, sigma_1, scale_nominal, qp_iters = ctx.consts
-        if scale_nominal:
-            raise NotImplementedError(
-                "fused_rhs on CUDA has no backward for scale_nominal=True: "
-                "kernel K2 covers the certify/attack dynamics "
-                "(scale_nominal=False); gradients through the squashed "
-                "dynamics arrive with training (Slice D)"
-            )
         h, xc, *w = ctx.saved_tensors
         weight_grads = any(ctx.needs_input_grad[2:7])
         dh, dxc, dp = fused_rhs_vjp(h, xc, g.contiguous(), RhsParams(*w),
-                                    alpha_1, sigma_1, qp_iters, weight_grads)
+                                    *ctx.consts, weight_grads)
         dw = tuple(dp) if dp is not None else (None,) * 5
         return (dh, dxc, *dw) + (None,) * 5
 

@@ -28,7 +28,7 @@ def flagship_pair():
     jmodel = __graft_entry__._flagship()
     x = np.random.default_rng(0).uniform(size=(4, 3, 32, 32)).astype(np.float32)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(x))
-    tmodel = flagship(generator=torch.Generator().manual_seed(1))
+    tmodel = flagship(generator=torch.Generator().manual_seed(1), device="cpu")
     params_from_numpy(tmodel, jax.tree_util.tree_map(np.asarray, params))
     return jmodel, params, tmodel, x
 
@@ -80,14 +80,14 @@ def test_tiny_classifier_solve_matches_jax(scale_nominal):
 
 
 def test_port_flagship_layout_and_entry():
-    model = flagship(generator=torch.Generator().manual_seed(0))
+    model = flagship(generator=torch.Generator().manual_seed(0), device="cpu")
     shapes = [tuple(c.weight.shape) for c in model.backbone.convs]
     assert shapes == [(32, 3, 3, 3), (32, 128, 2, 2), (64, 32, 3, 3),
                       (64, 256, 2, 2)]
     assert [tuple(lin.weight.shape) for lin in model.backbone.linears] == [
         (512, 4096), (512, 512), (10, 512)]
     assert not model.training
-    fn, (x,) = entry()
+    fn, (x,) = entry(device="cpu")
     with torch.no_grad():
         probs = fn(x)
     assert probs.shape == (8, 10)

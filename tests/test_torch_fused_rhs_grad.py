@@ -1,8 +1,8 @@
 """Port parity for the fused RHS backward (kernel K2's module): the plain
 version ``rhs_vjp_reference`` and autograd through ``fused_rhs`` on the CPU
 against the JAX K2 Pallas kernel in interpret mode and against ``jax.vjp``
-of the JAX reference, at a ragged batch (B = 37, not a multiple of the
-Pallas block).  The CUDA kernel is held against the plain version in
+of the JAX reference (scale_nominal off and on), at a ragged batch (B = 37,
+not a multiple of the Pallas block).  The CUDA kernel is held against the plain version in
 test_torch_kernels_cuda.py."""
 import importlib
 
@@ -63,10 +63,11 @@ def _jax_pallas_interpret(a):
     return _unpad(dh, dxc, dW1, dW2, dW3, db2[0], db3[0])
 
 
-def _jax_vjp(a):
+def _jax_vjp(a, scale_nominal=False):
     h, xc, g, p = _jax_padded(a)
     _, vjp = jax.vjp(
-        lambda h, xc, pp: jf.rhs_reference(h, xc, pp, N, A1, S1, A2, False, 30),
+        lambda h, xc, pp: jf.rhs_reference(h, xc, pp, N, A1, S1, A2,
+                                           scale_nominal, 30),
         h, xc, p)
     dh, dxc, dp = vjp(g)
     return _unpad(dh, dxc, dp.W1, dp.W2, dp.W3, dp.b2, dp.b3)
@@ -98,15 +99,15 @@ def _assert_all_close(got, want):
 def test_vjp_reference_matches_pallas_backward_interpret(case):
     a, pallas, _ = case
     h, xc, g, p = _torch(a)
-    _assert_all_close(_flat(*rhs_vjp_reference(h, xc, g, p, A1, S1, 30)),
-                      pallas)
+    _assert_all_close(
+        _flat(*rhs_vjp_reference(h, xc, g, p, A1, S1, A2, False, 30)), pallas)
 
 
 def test_vjp_reference_matches_jax_vjp(case):
     a, _, want = case
     h, xc, g, p = _torch(a)
-    _assert_all_close(_flat(*rhs_vjp_reference(h, xc, g, p, A1, S1, 30)),
-                      want)
+    _assert_all_close(
+        _flat(*rhs_vjp_reference(h, xc, g, p, A1, S1, A2, False, 30)), want)
 
 
 def test_autograd_through_fused_rhs_matches_jax(case):
@@ -121,16 +122,40 @@ def test_autograd_through_fused_rhs_matches_jax(case):
     _assert_all_close(got, pallas)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_vjp_reference_scale_nominal_matches_jax_vjp(seed):
+    # the chain through the squash f = (u - l) sigmoid(f~) + l, which K2
+    # follows on CUDA; JAX differentiates its reference (no Pallas backward)
+    a = _inputs(seed)
+    h, xc, g, p = _torch(a)
+    got = _flat(*rhs_vjp_reference(h, xc, g, p, A1, S1, A2, True, 30))
+    _assert_all_close(got, _jax_vjp(a, scale_nominal=True))
+    # the squash changes the result: this is not the scale_nominal-off VJP
+    off = _flat(*rhs_vjp_reference(h, xc, g, p, A1, S1, A2, False, 30))
+    assert np.abs(got[0] - off[0]).max() > 10 * TOL
+
+
+def test_autograd_through_scale_nominal_fused_rhs_matches_reference():
+    a = _inputs(3)
+    h, xc, g, p = _torch(a)
+    leaves = [t.clone().requires_grad_() for t in (h, xc, *p)]
+    out = fused_rhs(leaves[0], leaves[1], RhsParams(*leaves[2:]), A1, S1, A2,
+                    True, 30)
+    got = [v.numpy() for v in torch.autograd.grad(out, leaves, g)]
+    want = _flat(*rhs_vjp_reference(h, xc, g, p, A1, S1, A2, True, 30))
+    _assert_all_close(got, want)
+
+
 def test_cpu_vjp_wrapper_takes_the_plain_version():
     a = _inputs(2)
     h, xc, g, p = _torch(a)
     before = fused_rhs_vjp.launches
-    dh, dxc, dp = fused_rhs_vjp(h, xc, g, p, A1, S1, 30)
-    rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, A1, S1, 30)
+    dh, dxc, dp = fused_rhs_vjp(h, xc, g, p, A1, S1, A2, False, 30)
+    rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, A1, S1, A2, False, 30)
     assert fused_rhs_vjp.launches == before
     for got, want in zip((dh, dxc, *dp), (rh, rxc, *rp)):
         np.testing.assert_array_equal(got.numpy(), want.numpy())
-    dh2, dxc2, none = fused_rhs_vjp(h, xc, g, p, A1, S1, 30,
+    dh2, dxc2, none = fused_rhs_vjp(h, xc, g, p, A1, S1, A2, False, 30,
                                     weight_grads=False)
     assert none is None
     np.testing.assert_array_equal(dh2.numpy(), dh.numpy())

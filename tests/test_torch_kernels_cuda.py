@@ -78,7 +78,7 @@ def test_fused_rhs_kernel_matches_plain(cuda, B, n, mlp, scale_nominal):
     assert torch.equal(got, again)
 
 
-def _kink_free_cotangent(h, xc, p, seed):
+def _kink_free_cotangent(h, xc, p, seed, scale_nominal=False):
     """A unit-normal cotangent (B, n), zero on rows near a kink."""
     d = [t.double() for t in (h, xc, *p)]
     h64, xc64, q = d[0], d[1], RhsParams(*d[2:])
@@ -86,6 +86,8 @@ def _kink_free_cotangent(h, xc, p, seed):
     pre2 = torch.relu(pre1) @ q.W2.T + q.b2
     f = torch.relu(pre2) @ q.W3.T + q.b3
     lower = -A1 * (torch.exp(S1 * h64) - 1.0)
+    if scale_nominal:
+        f = (A2 * (1.0 - h64) - lower) * torch.sigmoid(f) + lower
     margin = (f - cone_project_mu(lower, f, 60)) - lower
     near = ((pre1.abs() < KINK_MARGIN).any(-1)
             | (pre2.abs() < KINK_MARGIN).any(-1)
@@ -106,55 +108,67 @@ def _assert_k2_matches_plain(got, want):
                                        atol=K2_TOL * float(b.abs().max()))
 
 
-@pytest.mark.parametrize("B,n,mlp", [(4096 + 17, 10, 128), (37, 10, 128),
-                                     (100, 3, 16), (65, 32, 96)])
-def test_fused_rhs_vjp_kernel_matches_plain(cuda, B, n, mlp):
-    h, xc, p = _rhs_inputs(B, n, mlp, B + n + 1, cuda)
-    g, _ = _kink_free_cotangent(h, xc, p, B)
-    want = rhs_vjp_reference(h, xc, g, p, A1, S1, 30)
+def _assert_k2_matches_plain_and_repeats(h, xc, g, p, scale_nominal):
+    want = rhs_vjp_reference(h, xc, g, p, A1, S1, A2, scale_nominal, 30)
     for weight_grads in (True, False):
         before = fused_rhs_vjp.launches
-        got = fused_rhs_vjp(h, xc, g, p, A1, S1, 30, weight_grads)
+        got = fused_rhs_vjp(h, xc, g, p, A1, S1, A2, scale_nominal, 30,
+                            weight_grads)
         assert fused_rhs_vjp.launches == before + 1
         assert (got[2] is None) != weight_grads
         _assert_k2_matches_plain(got, want)
         # no atomics: repeated launches are bit-identical
-        again = fused_rhs_vjp(h, xc, g, p, A1, S1, 30, weight_grads)
+        again = fused_rhs_vjp(h, xc, g, p, A1, S1, A2, scale_nominal, 30,
+                              weight_grads)
         for a, b in zip(got[:2] + tuple(got[2] or ()),
                         again[:2] + tuple(again[2] or ())):
             assert torch.equal(a, b)
 
 
-def test_fused_rhs_vjp_refuses_what_shared_memory_cannot_hold(cuda):
-    # weight-gradient partials of n = 32, mlp = 160 need ~360 KB per block
-    h, xc, p = _rhs_inputs(65, 32, 160, 0, cuda)
+@pytest.mark.parametrize("scale_nominal", [False, True])
+@pytest.mark.parametrize("B,n,mlp", [(4096 + 17, 10, 128), (37, 10, 128),
+                                     (100, 3, 16), (65, 32, 96)])
+def test_fused_rhs_vjp_kernel_matches_plain(cuda, B, n, mlp, scale_nominal):
+    h, xc, p = _rhs_inputs(B, n, mlp, B + n + 1, cuda)
+    g, _ = _kink_free_cotangent(h, xc, p, B, scale_nominal)
+    _assert_k2_matches_plain_and_repeats(h, xc, g, p, scale_nominal)
+
+
+def test_fused_rhs_vjp_keeps_large_partials_in_device_memory(cuda):
+    # n = 32, mlp = 160: the weight-gradient partials (144 KB) could not sit
+    # beside the weights and the tile scratch (218 KB) in shared memory; each
+    # block sums them into its workspace slot in device memory, as at every
+    # shape, in a fixed order
+    h, xc, p = _rhs_inputs(4096 + 65, 32, 160, 0, cuda)
+    g, _ = _kink_free_cotangent(h, xc, p, 1)
+    _assert_k2_matches_plain_and_repeats(h, xc, g, p, False)
+
+
+def test_fused_rhs_refuses_weights_beyond_shared_memory(cuda):
+    # n = 32, mlp = 224: the weights alone need more than 227 KB per block
+    h, xc, p = _rhs_inputs(65, 32, 224, 0, cuda)
     g = torch.randn(65, 32, device=cuda)
-    with pytest.raises(RuntimeError, match="fused_rhs_vjp kernel failed"):
-        fused_rhs_vjp(h, xc, g, p, A1, S1, 30, True)
-    # without them the block fits
-    dh, dxc, _ = fused_rhs_vjp(h, xc, g, p, A1, S1, 30, False)
-    rh, rxc, _ = rhs_vjp_reference(h, xc, g, p, A1, S1, 30)
-    assert dh.shape == rh.shape and dxc.shape == rxc.shape
+    before = (fused_rhs.launches, fused_rhs_vjp.launches)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused_rhs(h, xc, p, A1, S1, A2, False, 30)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused_rhs_vjp(h, xc, g, p, A1, S1, A2, False, 30, False)
+    assert (fused_rhs.launches, fused_rhs_vjp.launches) == before
 
 
-def test_fused_rhs_backward_launches_k2(cuda):
+@pytest.mark.parametrize("scale_nominal", [False, True])
+def test_fused_rhs_backward_launches_k2(cuda, scale_nominal):
     h, xc, p = _rhs_inputs(300, 10, 128, 7, cuda)
-    g, _ = _kink_free_cotangent(h, xc, p, 8)
+    g, _ = _kink_free_cotangent(h, xc, p, 8, scale_nominal)
     leaves = [t.clone().requires_grad_() for t in (h, xc, *p)]
     out = fused_rhs(leaves[0], leaves[1], RhsParams(*leaves[2:]), A1, S1, A2,
-                    False, 30)
+                    scale_nominal, 30)
     before = fused_rhs_vjp.launches
     grads = torch.autograd.grad(out, leaves, g)
     assert fused_rhs_vjp.launches == before + 1
-    rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, A1, S1, 30)
+    rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, A1, S1, A2, scale_nominal,
+                                    30)
     _assert_k2_matches_plain((grads[0], grads[1], grads[2:]), (rh, rxc, rp))
-
-
-def test_fused_rhs_backward_refuses_scale_nominal(cuda):
-    h, xc, p = _rhs_inputs(8, 10, 32, 0, cuda)
-    h.requires_grad_()
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        fused_rhs(h, xc, p, A1, S1, A2, True, 30).sum().backward()
 
 
 def test_fused_rhs_kernel_rejects_bad_layout(cuda):
@@ -166,8 +180,14 @@ def test_fused_rhs_kernel_rejects_bad_layout(cuda):
 
 
 @pytest.mark.parametrize("ci,co,k,n,B", [
+    # the flagship's four applies, then the transposed shapes its backward
+    # gives K3 (here as forward layers), the MNIST KWLarge's applies, and
+    # ragged and odd shapes of both transform paths
     (3, 32, 3, 32, 64), (128, 32, 2, 16, 64), (32, 64, 3, 16, 64),
-    (256, 64, 2, 8, 64), (5, 3, 3, 8, 7), (6, 4, 2, 8, 1), (4, 8, 3, 16, 13),
+    (256, 64, 2, 8, 64), (32, 3, 3, 32, 64), (32, 128, 2, 16, 64),
+    (64, 32, 3, 16, 64), (64, 256, 2, 8, 64), (1, 32, 3, 28, 37),
+    (128, 32, 2, 14, 37), (32, 64, 3, 14, 37), (256, 64, 2, 7, 37),
+    (5, 3, 3, 8, 7), (6, 4, 2, 8, 1), (4, 8, 3, 16, 13), (3, 5, 3, 5, 9),
 ])
 def test_fused_freq_apply_kernel_matches_plain(cuda, ci, co, k, n, B):
     x, Qr, Qi = _conv_inputs(ci, co, k, n, B, ci * co, cuda)
@@ -181,7 +201,8 @@ def test_fused_freq_apply_kernel_matches_plain(cuda, ci, co, k, n, B):
 
 
 @pytest.mark.parametrize("ci,co,k,n", [
-    (3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16), (256, 64, 2, 8)])
+    (3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16), (256, 64, 2, 8),
+    (1, 32, 3, 28), (256, 64, 2, 7)])
 def test_fused_freq_apply_backward_is_k3_on_q_herm(cuda, ci, co, k, n):
     # the backward applies the transposed shapes co -> ci, including
     # 32 -> 3 and 64 -> 256, which no forward layer gives K3
@@ -221,7 +242,7 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="device"):
         fused_rhs(h, xc, p, A1, S1, A2)
     with pytest.raises(ValueError, match="device"):
-        fused_rhs_vjp(h, xc, h, p, A1, S1)
+        fused_rhs_vjp(h, xc, h, p, A1, S1, A2)
     x = torch.zeros(1, 3, 8, 8, device="meta")
     Q = torch.zeros(40, 5, 3, device="meta")
     with pytest.raises(ValueError, match="device"):

@@ -1,8 +1,8 @@
 """Gradients through the solve: d(CE)/dx and d(CE)/dparams through the
 port's differentiable dopri5 solve equal ``jax.grad`` through the JAX
 package's fused ``scan``-mode solve, on the small TinyMLP classifier of
-tests/test_fused_rhs.py and on the committed certified checkpoint at the
-attack protocol's t_max = 0.1, max_steps = 8 (CPU, float32)."""
+tests/test_fused_rhs.py (scale_nominal off and on) and on the committed
+certified checkpoint at the attack protocol's t_max = 0.1, max_steps = 8 (CPU, float32)."""
 import dataclasses
 
 import jax
@@ -45,9 +45,8 @@ def _port_grads(tmodel, x, y):
     return sol, xt.grad.numpy()
 
 
-@pytest.fixture(scope="module")
-def tiny_pair():
-    jmodel, params, x = make_model()
+def _tiny_pair(scale_nominal):
+    jmodel, params, x = make_model(scale_nominal=scale_nominal)
     jmodel = dataclasses.replace(jmodel, max_steps=16)
     d = jmodel.dynamics
     tmodel = NeuralODEClassifier(
@@ -55,14 +54,19 @@ def tiny_pair():
         SimplexDynamics(n_hidden=d.n_hidden, mlp_size=d.mlp_size,
                         x_dim=d.x_dim, dropout=0.0, alpha_1=d.alpha_1,
                         alpha_2=d.alpha_2, sigma_1=d.sigma_1,
-                        scale_nominal=False),
+                        scale_nominal=scale_nominal),
         max_steps=jmodel.max_steps)
     params_from_numpy(tmodel, jax.tree_util.tree_map(np.asarray, params))
     return jmodel, params, tmodel, np.asarray(x)
 
 
-def test_tiny_solve_input_and_param_grads_match_jax(tiny_pair):
-    jmodel, params, tmodel, x = tiny_pair
+@pytest.fixture(scope="module")
+def tiny_pair():
+    return _tiny_pair(False)
+
+
+def _assert_tiny_grads_match_jax(pair):
+    jmodel, params, tmodel, x = pair
     y = np.array([0, 1, 2, 3, 4, 5])
     gp, gx = _jax_grads(jmodel, params, x, jnp.asarray(y))
     sol, got_x = _port_grads(tmodel, x, y)
@@ -75,6 +79,18 @@ def test_tiny_solve_input_and_param_grads_match_jax(tiny_pair):
         g = named[name].grad
         assert g is not None, name
         np.testing.assert_allclose(g.numpy(), w, atol=GRAD_TOL, err_msg=name)
+
+
+def test_tiny_solve_input_and_param_grads_match_jax(tiny_pair):
+    _assert_tiny_grads_match_jax(tiny_pair)
+
+
+def test_tiny_scale_nominal_solve_grads_match_jax():
+    # the squashed dynamics of the flagship: on CUDA this gradient is K2's
+    # scale_nominal branch, whose plain version autograd follows here
+    pair = _tiny_pair(True)
+    assert pair[2].dynamics.scale_nominal
+    _assert_tiny_grads_match_jax(pair)
 
 
 def test_tiny_solve_grad_nfe_matches_the_forward(tiny_pair):
@@ -97,8 +113,9 @@ def test_checkpoint_input_grad_matches_jax():
     y = np.asarray(ds.test_y[:4])
     _, gx = _jax_grads(jmodel, params, x, jnp.asarray(y))
     # the port's constructor of this configuration loads the checkpoint as is
-    tmodel = params_from_numpy(certify_model(t_max=0.1, max_steps=8),
-                               jax.tree_util.tree_map(np.asarray, params))
+    tmodel = params_from_numpy(
+        certify_model(t_max=0.1, max_steps=8, device="cpu"),
+        jax.tree_util.tree_map(np.asarray, params))
     d, td = jmodel.dynamics, tmodel.dynamics
     assert (td.mlp_size, td.activation, td.scale_nominal) == (
         d.mlp_size, d.activation, d.scale_nominal)
