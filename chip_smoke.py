@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -46,8 +47,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_CLASSES, MLP = 10, 128
+WIDE_N = 100  # phase 3 also holds K1 at a wide state (the JAX kernel takes n <= 128)
 K1_BATCH, K3_BATCH, E2E_BATCH, TIME_BATCH = 4096, 64, 4096, 32768
 K1_TOL, K3_TOL, E2E_TOL = 2e-4, 1e-4, 1e-3
+MAX_SPILL_BYTES = 16  # spill stores a main-path kernel of fused_rhs.cu may have
 # (ci, co, k, n) of the flagship's four CayleyConv applies (after
 # space_to_depth for the strided ones)
 CONV_SHAPES = ((3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16),
@@ -60,8 +63,9 @@ MNIST_CONV_SHAPES = ((1, 32, 3, 28), (128, 32, 2, 14), (32, 64, 3, 14),
 # outside the tensor cores, TF32 on the tensor cores, HBM3; a kernel's bound
 # is the larger of its bytes (each input read once, each output written
 # once) over the memory rate and its flops over the peak rate of the unit
-# that runs them: K1 and K2 run on float32 lanes; K3's mix runs on the
-# tensor cores in 3xTF32, three TF32 products per float32 product
+# that runs them: the products of K1 and K2 and K3's mix run on the tensor
+# cores in 3xTF32, three TF32 products per float32 product; K1's and K2's
+# bisection runs on float32 lanes
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 # phases 7-10: the certified configuration and the attack protocol of
 # run_data/certified_full/autoattack_full_standard_512_tmax01.json
@@ -103,6 +107,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, tags: tuple, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    names contain one of ``tags``, from torch.profiler: a launch shorter than
+    the host's work per call (~0.06 ms through the autograd wrapper) cannot
+    be timed between two events.  Falls back to ``cuda_ms`` if the profiler
+    saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if any(tag in e.key for tag in tags):
+            us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    return us / 1e3 / iters if us > 0 else cuda_ms(fn, iters)
+
+
+K1_KERNELS = ("fused_rhs_kernel",)
+K2_KERNELS = ("fused_rhs_backward_kernel", "reduce_slots_kernel")
+
+
 def bound_ms(n_bytes: float, flops: float, rate: float = FP32_FLOPS) -> tuple:
     """(least milliseconds, "bytes" or "operations") for flops at rate."""
     t_bytes, t_ops = n_bytes / HBM_BYTES, flops / rate
@@ -118,22 +146,26 @@ def conv_bound(B, ci, co, n) -> tuple:
                     8 * B * F * co * ci, TF32_FLOPS / 3)
 
 
-def rhs_flops(n, m, qp_iters, backward=False, weight_grads=False) -> int:
-    """Flops per batch row of K1 (and of K2, which recomputes K1): the three
-    products and the bisection; backward adds d pre2, d pre1 and dh, and
-    the weight gradients dW3, dW2 and dW1."""
-    fwd = 2 * n * m + 2 * m * m + 2 * m * n + 3 * n * qp_iters
-    if not backward:
-        return fwd
-    grads = 2 * n * m + 2 * m * m + 2 * m * n
-    return fwd + grads * (2 if weight_grads else 1)
+def rhs_flops(n, m, qp_iters, backward=False, weight_grads=False) -> tuple:
+    """Flops per batch row of K1 (and of K2, which recomputes K1), as (the
+    products', the bisection's): three products forward; backward adds
+    d pre2, d pre1 and dh, and the weight gradients dW3, dW2 and dW1."""
+    products = 2 * n * m + 2 * m * m + 2 * m * n
+    if backward:
+        products *= 3 if weight_grads else 2
+    return products, 3 * n * qp_iters
 
 
-def rhs_bound(B, n, m, qp_iters, backward=False, weight_grads=False):
+def rhs_bound(B, n, m, qp_iters, backward=False, weight_grads=False) -> tuple:
+    """Bound of one K1 or K2 launch: rows and weights once over the memory
+    rate; the products' flops at the 3xTF32 rate (a third of the TF32 peak)
+    plus the bisection's at the float32 rate."""
     weights = 4 * (2 * m * n + m * m + m + n)
     rows = 4 * B * ((n + m + n + n + m) if backward else (n + m + n))
-    return bound_ms(rows + weights * (2 if weight_grads else 1),
-                    B * rhs_flops(n, m, qp_iters, backward, weight_grads))
+    products, bisection = rhs_flops(n, m, qp_iters, backward, weight_grads)
+    t_bytes = (rows + weights * (2 if weight_grads else 1)) / HBM_BYTES
+    t_ops = B * (products / (TF32_FLOPS / 3) + bisection / FP32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def k3_stage_ms(run, x, iters: int = 3) -> dict:
@@ -157,13 +189,17 @@ def k3_stage_ms(run, x, iters: int = 3) -> dict:
     return stages
 
 
-def device_breakdown(fn, top: int = 8) -> tuple:
+def device_breakdown(fn, top: int = 8, top_ops: int = 14) -> tuple:
     """Run fn once under torch.profiler: (wall ms, device-busy ms, the top
-    kernels as (name, ms)), summed over the device's own kernel events
-    only, so that no time is counted twice through the ops that launched
-    them."""
+    kernels as (name, ms), the top operators as (name, input shapes, calls,
+    ms)).  The kernels are summed over the device's own kernel events only,
+    so that no time is counted twice through the ops that launched them; an
+    operator's time is that of the kernels it launched itself (not its
+    children's), grouped by operator and input shapes.  Kernels launched
+    outside any PyTorch operator (K1, K3) appear only among the kernels."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -176,7 +212,17 @@ def device_breakdown(fn, top: int = 8) -> tuple:
                 us = getattr(e, "cuda_time_total", 0)
             rows.append((e.key, us / 1e3))
     rows.sort(key=lambda r: -r[1])
-    return wall, sum(ms for _, ms in rows), rows[:top]
+    ops = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            ops.append((e.key, str(e.input_shapes), e.count, us / 1e3))
+    ops.sort(key=lambda r: -r[3])
+    return wall, sum(ms for _, ms in rows), rows[:top], ops[:top_ops]
 
 
 def counts() -> dict:
@@ -250,7 +296,8 @@ def kink_free_cotangent(h, xc, p, dyn, seed, scale_nominal=False):
 def k2_phase(dyn, dev) -> dict:
     """[7 K2] the fused RHS backward against rhs_vjp_reference, with the
     squash (scale_nominal) off, as in the certified dynamics, and on."""
-    from fiode_tpu_torch.ops.fused_rhs import fused_rhs_vjp, rhs_vjp_reference
+    from fiode_tpu_torch.ops.fused_rhs import (fused_rhs, fused_rhs_vjp,
+                                               rhs_vjp_reference)
     with torch.no_grad():
         p = rhs_weights(dyn)
         n, m = p.W3.shape
@@ -295,16 +342,32 @@ def k2_phase(dyn, dev) -> dict:
         for sn in (False, True):
             args = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, sn, dyn.qp_iters)
             plain = cuda_ms(lambda: rhs_vjp_reference(h, xc, g, p, *args), 20)
-            ms = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, True), 20)
-            ms_x = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, False), 20)
+            ms = kernel_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, True),
+                           K2_KERNELS)
+            ms_x = kernel_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, False),
+                             K2_KERNELS)
+            per_call = cuda_ms(lambda: fused_rhs_vjp(h, xc, g, p, *args, False), 20)
             bw, by = rhs_bound(TIME_BATCH, n, m, dyn.qp_iters, True, True)
-            bx, _ = rhs_bound(TIME_BATCH, n, m, dyn.qp_iters, True, False)
+            bx, byx = rhs_bound(TIME_BATCH, n, m, dyn.qp_iters, True, False)
             log(f"[7 time] K2 B={TIME_BATCH} scale_nominal={sn}: kernel {ms:.4f} "
-                f"ms with weight grads (bound {bw:.4f}), {ms_x:.4f} ms without "
-                f"(bound {bx:.4f}) | plain {plain:.4f} ms")
+                f"ms with weight grads (bound {bw:.4f} ms by {by}, "
+                f"{100 * bw / ms:.1f}% of it), {ms_x:.4f} ms without (bound "
+                f"{bx:.4f} ms by {byx}, {100 * bx / ms_x:.1f}% of it; "
+                f"{per_call:.4f} ms per call between events, host included) | "
+                f"plain {plain:.4f} ms")
             if not sn:  # the certified dynamics, which the attacks run
                 out.update(ms=ms, ms_no_weights=ms_x, plain_ms=plain, bound_ms=bw,
                            bound_by=by)
+        # the attacks' batch: one 16-row tile a warp, a launch's latency
+        hs, xs, gs = h[:ATTACK_IMAGES], xc[:ATTACK_IMAGES], g[:ATTACK_IMAGES]
+        args = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, False, dyn.qp_iters)
+        small = (kernel_ms(lambda: fused_rhs(hs, xs, p, *args), K1_KERNELS),
+                 kernel_ms(lambda: fused_rhs_vjp(hs, xs, gs, p, *args, False),
+                           K2_KERNELS),
+                 kernel_ms(lambda: fused_rhs_vjp(hs, xs, gs, p, *args, True),
+                           K2_KERNELS))
+        log(f"[7 time] B={ATTACK_IMAGES} scale_nominal=False: K1 {small[0]:.4f} ms | "
+            f"K2 {small[1]:.4f} ms without weight grads, {small[2]:.4f} ms with")
     return out
 
 
@@ -367,7 +430,7 @@ def plain_backward(rhs_ctx, g):
     from fiode_tpu_torch.ops.fused_rhs import RhsParams, rhs_vjp_reference
     h, xc, *w = rhs_ctx.saved_tensors
     dh, dxc, _ = rhs_vjp_reference(h, xc, g, RhsParams(*w), *rhs_ctx.consts)
-    return (dh, dxc) + (None,) * 10
+    return (dh, dxc) + (None,) * 11
 
 
 @contextlib.contextmanager
@@ -595,7 +658,8 @@ def main() -> None:
     from fiode_tpu_torch.ops._build import BUILD_DIR, load_library
     from fiode_tpu_torch.ops.cayley import apply_freq_matrices, cayley_conv_kernel
     from fiode_tpu_torch.ops.fused_cayley_conv import _launch, fused_freq_apply
-    from fiode_tpu_torch.ops.fused_rhs import fused_rhs, rhs_reference
+    from fiode_tpu_torch.ops import fused_rhs as fused_rhs_module
+    from fiode_tpu_torch.ops.fused_rhs import RhsParams, fused_rhs, rhs_reference
 
     dev = torch.device("cuda", 0)
 
@@ -613,16 +677,39 @@ def main() -> None:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("fused_rhs", "fused_cayley_conv")
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
-        list(pool.map(load_library, sources))
+    # K1 and K2 are compiled per pair of tile counts: the flagship's
+    # (n = 10) and phase 3's wide state (n = 100); one nvcc each, together
+    builds = [lambda: load_library("fused_cayley_conv"),
+              lambda: fused_rhs_module.build(N_CLASSES, MLP),
+              lambda: fused_rhs_module.build(WIDE_N, MLP)]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for p in sorted(BUILD_DIR.glob("*.log"))
-             for ln in p.read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"[2 build] K1 + K2 + K3 built in {build_s:.1f} s into {BUILD_DIR}")
-    for ln in ptxas:
-        log(f"    ptxas: {ln}")
+    log(f"[2 build] K1 + K2 (two widths) + K3 built in {build_s:.1f} s into "
+        f"{BUILD_DIR}")
+    # ptxas on every kernel; the main path's own (the flagship's K1, and its
+    # K2 without weight gradients: every launch of phases 5, 9 and 10) may
+    # spill a stray register, not a fragment
+    spilled = []
+    for p in sorted(BUILD_DIR.glob("*.log")):
+        lines = p.read_text().splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln:
+                info = " ".join(x.replace("ptxas info    :", "").strip()
+                                for x in lines[i + 2:i + 4])
+                name = ln.split(chr(39))[1]
+                flags = "".join(re.findall(r"Lb([01])E", name))
+                kernel = next((k for k in ("fused_rhs_backward_kernel",
+                                           "fused_rhs_kernel") if k in name),
+                              name[-40:])
+                log(f"    ptxas {p.stem[3:]} {kernel}<{flags}>: {info}")
+                hot = kernel == "fused_rhs_kernel" or flags.endswith("0")
+                stores = int(re.search(r"(\d+) bytes spill stores", info).group(1))
+                if (p.name.endswith(f"mt{MLP // 8}-fiode_rhs_nt{-(-N_CLASSES // 8)}.log")
+                        and "fused_rhs" in kernel and hot and stores > MAX_SPILL_BYTES):
+                    spilled.append(f"{kernel}<{flags}> {stores} bytes")
+    if spilled:
+        raise RuntimeError(f"kernels of the main path spill registers: {spilled}")
 
     model = flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev)
     errs = {"fused_rhs": 0.0, "fused_freq_apply": 0.0}
@@ -644,6 +731,42 @@ def main() -> None:
                 f"max|d|={err:.3e} (tol {K1_TOL:g})")
             if not err <= K1_TOL:
                 raise RuntimeError(f"K1 disagrees with its plain version: {err}")
+        # a wide state, and both versions against a float64 evaluation of
+        # the RHS on the unsquashed f: certificates are float32, and this
+        # holds the 3xTF32 products to the plain float32 version's accuracy.
+        # With sigma_1 = 0 the barrier is flat at 0 and no exp stands between
+        # the products and the output (at the dynamics' sigma_1 an ulp of
+        # exp, times alpha_1, is most of both errors).
+        for n_w, seed, sigma_1 in ((N_CLASSES, 7, dyn.sigma_1), (N_CLASSES, 7, 0.0),
+                                   (WIDE_N, 8, dyn.sigma_1), (WIDE_N, 8, 0.0)):
+            wts = [0.3 * torch.randn(*shape, generator=gen(seed)).to(dev)
+                   for shape in ((MLP, n_w), (MLP, MLP), (n_w, MLP), (MLP,), (n_w,))]
+            pw = fused_rhs_module.pack_rhs_params(*wts)
+            hw = simplex_rows(K1_BATCH, n_w, seed + 2, dev)
+            xw = 0.5 * torch.randn(K1_BATCH, MLP, generator=gen(seed + 4)).to(dev)
+            args = (dyn.alpha_1, sigma_1, dyn.alpha_2, False, dyn.qp_iters)
+            got = fused_rhs(hw, xw, pw, *args)
+            again = fused_rhs(hw, xw, pw, *args)
+            want = rhs_reference(hw, xw, pw, *args)
+            p64 = RhsParams(*(t.double() for t in pw))
+            exact = rhs_reference(hw.double(), xw.double(), p64, *args[:4], 60)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            e_kernel = (got - exact).abs().max().item()
+            e_plain = (want - exact).abs().max().item()
+            errs["fused_rhs"] = max(errs["fused_rhs"], err)
+            log(f"[3 K1] B={K1_BATCH} n={n_w} mlp={MLP} scale_nominal=False "
+                f"sigma_1={sigma_1:g}: "
+                f"max|d|={err:.3e} (tol {K1_TOL:g}) | against float64: kernel "
+                f"{e_kernel:.3e}, plain float32 {e_plain:.3e} (the kernel's may "
+                f"be at most twice the plain version's)")
+            if not err <= K1_TOL:
+                raise RuntimeError(f"K1 disagrees with its plain version: {err}")
+            if not e_kernel <= 2 * e_plain:
+                raise RuntimeError(f"K1 is further from float64 than twice the "
+                                   f"plain version: {e_kernel} vs {e_plain}")
+            if not torch.equal(got, again):
+                raise RuntimeError("two K1 launches differ")
 
     # 4. K3 vs plain ----------------------------------------------------------
     def conv_qs(backbone, shapes):
@@ -755,22 +878,28 @@ def main() -> None:
             f"(runs {[round(v, 1) for v in solve_ms[which]]}), nfe={nfe[which]}, "
             f"{TIME_BATCH * nfe[which] / (ms / 1e3):.4g} sample-NFE/s")
     with torch.no_grad():
-        wall, busy, top = device_breakdown(lambda: checked_solve(xt))
+        wall, busy, top, top_ops = device_breakdown(lambda: checked_solve(xt))
     log(f"[6 profile] solve B={TIME_BATCH} kernel path under torch.profiler: "
         f"wall {wall:.1f} ms, device busy "
         + (f"{busy:.1f} ms (idle share {1 - busy / wall:.2f}); costliest on "
            "the device: " + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top)
            if busy > 0 else "not measured (the profiler saw no device time)"))
+    # the PyTorch operators whose own kernels cost the most, by input shape
+    for name, shapes, calls, ms in top_ops:
+        log(f"[6 profile]   {ms:7.2f} ms  {calls:4d} x {name} {shapes[:110]}")
 
     with torch.no_grad():
         h = simplex_rows(TIME_BATCH, N_CLASSES, 5, dev)
         xc = torch.randn(TIME_BATCH, MLP, generator=gen(6)).to(dev)
         args = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, True, dyn.qp_iters)
         k1_plain = cuda_ms(lambda: rhs_reference(h, xc, p, *args), 20)
-        k1_ms = cuda_ms(lambda: fused_rhs(h, xc, p, *args), 20)
+        k1_ms = kernel_ms(lambda: fused_rhs(h, xc, p, *args), K1_KERNELS)
+        k1_call = cuda_ms(lambda: fused_rhs(h, xc, p, *args), 20)
         k1_bound, k1_by = rhs_bound(TIME_BATCH, N_CLASSES, MLP, dyn.qp_iters)
         log(f"[6 time] K1 B={TIME_BATCH}: kernel {k1_ms:.4f} ms | plain "
-            f"{k1_plain:.4f} ms | bound {k1_bound:.4f} ms ({k1_by})")
+            f"{k1_plain:.4f} ms | bound {k1_bound:.4f} ms ({k1_by}), "
+            f"{100 * k1_bound / k1_ms:.1f}% of it | {k1_call:.4f} ms per call "
+            f"between events, host included")
         # each layer's K3 forward, and its transposed launch (the conv
         # backward: K3 on Q^H through swapped strides), against the plain
         # dense DFT, torch.fft and the layer's bound

@@ -21,6 +21,7 @@ from fiode_tpu_torch.ops.fused_rhs import (
     pack_rhs_params,
     rhs_reference,
     rhs_vjp_reference,
+    staged_warps,
 )
 from fiode_tpu_torch.ops.simplex_qp import cone_project_mu
 
@@ -65,7 +66,8 @@ def _conv_inputs(ci, co, k, n, B, seed, device):
 
 @pytest.mark.parametrize("scale_nominal", [False, True])
 @pytest.mark.parametrize("B,n,mlp", [(4096, 10, 128), (37, 10, 128),
-                                     (100, 3, 16), (65, 32, 160)])
+                                     (100, 3, 16), (65, 32, 160),
+                                     (300, 64, 128), (300, 100, 128)])
 def test_fused_rhs_kernel_matches_plain(cuda, B, n, mlp, scale_nominal):
     h, xc, p = _rhs_inputs(B, n, mlp, B + n, cuda)
     before = fused_rhs.launches
@@ -127,7 +129,8 @@ def _assert_k2_matches_plain_and_repeats(h, xc, g, p, scale_nominal):
 
 @pytest.mark.parametrize("scale_nominal", [False, True])
 @pytest.mark.parametrize("B,n,mlp", [(4096 + 17, 10, 128), (37, 10, 128),
-                                     (100, 3, 16), (65, 32, 96)])
+                                     (100, 3, 16), (65, 32, 96),
+                                     (300, 64, 128), (300, 100, 128)])
 def test_fused_rhs_vjp_kernel_matches_plain(cuda, B, n, mlp, scale_nominal):
     h, xc, p = _rhs_inputs(B, n, mlp, B + n + 1, cuda)
     g, _ = _kink_free_cotangent(h, xc, p, B, scale_nominal)
@@ -135,17 +138,20 @@ def test_fused_rhs_vjp_kernel_matches_plain(cuda, B, n, mlp, scale_nominal):
 
 
 def test_fused_rhs_vjp_keeps_large_partials_in_device_memory(cuda):
-    # n = 32, mlp = 160: the weight-gradient partials (144 KB) could not sit
-    # beside the weights and the tile scratch (218 KB) in shared memory; each
-    # block sums them into its workspace slot in device memory, as at every
-    # shape, in a fixed order
+    # n = 32, mlp = 160: the weight-gradient partials (144 KB) cannot sit
+    # beside the packed weights (141 KB) in shared memory; each block adds
+    # its tiles' products to its workspace slot in device memory, as at every
+    # shape, in a fixed order; four warps' staging buffers fit, eight do not
+    assert staged_warps(32, 160) == 4
     h, xc, p = _rhs_inputs(4096 + 65, 32, 160, 0, cuda)
     g, _ = _kink_free_cotangent(h, xc, p, 1)
     _assert_k2_matches_plain_and_repeats(h, xc, g, p, False)
 
 
 def test_fused_rhs_refuses_weights_beyond_shared_memory(cuda):
-    # n = 32, mlp = 224: the weights alone need more than 227 KB per block
+    # n = 32, mlp = 224: the packed weights alone need 259072 bytes, more
+    # than the 227 KB a block can have (nothing inside n <= 128, mlp <= 128,
+    # the JAX kernel's domain, is refused: see the test below)
     h, xc, p = _rhs_inputs(65, 32, 224, 0, cuda)
     g = torch.randn(65, 32, device=cuda)
     before = (fused_rhs.launches, fused_rhs_vjp.launches)
@@ -154,6 +160,19 @@ def test_fused_rhs_refuses_weights_beyond_shared_memory(cuda):
     with pytest.raises(ValueError, match="bytes of shared memory"):
         fused_rhs_vjp(h, xc, g, p, A1, S1, A2, False, 30, False)
     assert (fused_rhs.launches, fused_rhs_vjp.launches) == before
+
+
+@pytest.mark.parametrize("scale_nominal", [False, True])
+def test_fused_rhs_takes_the_widest_state_of_the_jax_kernel(cuda, scale_nominal):
+    # n = 128, mlp = 128 fills the Pallas kernel's 128 lanes: 197632 bytes of
+    # packed weights; with weight gradients K2 runs two warps a block
+    assert staged_warps(128, 128) == 2
+    h, xc, p = _rhs_inputs(150, 128, 128, 3, cuda)
+    got = fused_rhs(h, xc, p, A1, S1, A2, scale_nominal, 30)
+    want = rhs_reference(h, xc, p, A1, S1, A2, scale_nominal, 30)
+    torch.testing.assert_close(got, want, atol=K1_TOL, rtol=0)
+    g, _ = _kink_free_cotangent(h, xc, p, 4, scale_nominal)
+    _assert_k2_matches_plain_and_repeats(h, xc, g, p, scale_nominal)
 
 
 @pytest.mark.parametrize("scale_nominal", [False, True])
