@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from fiode_tpu_torch/csrc (K1 and K2
-in fused_rhs.cu, K3 in fused_cayley_conv.cu), holds each against its plain
-PyTorch version at the shapes its paths give it, and drives two paths
-through the kernels and through the plain path, checking that the kernels
-carried each and timing both:
+in fused_rhs.cu, once per state width; K3 in fused_cayley_conv.cu), prints
+ptxas's registers and spills, holds each kernel against its plain PyTorch
+version at the shapes its paths give it, and drives two paths through the
+kernels and through the plain path, checking that the kernels carried each
+and timing both:
 
   * phases 3-6: the flagship forward solve (KWLarge Cayley backbone ->
-    simplex neural ODE, dopri5), K1 and K3; phase 4 also holds K3 at the
-    transposed flagship shapes and at the MNIST KWLarge's, and phase 6 times
-    each conv layer's K3 forward and transposed launch against the plain
-    dense DFT, torch.fft and the layer's bound;
+    simplex neural ODE, dopri5), K1 and K3; phase 3 also holds K1 at a wide
+    state (n = 100) and, with the plain version, against float64; phase 4
+    also holds K3 at the transposed flagship shapes and at the MNIST
+    KWLarge's; phase 6 times K1 (device time from torch.profiler) and each
+    conv layer's K3 forward and transposed launch against the plain
+    version, torch.fft and the bound, and profiles one solve: device busy,
+    idle share, the costliest kernels, and the PyTorch operators by input
+    shape;
   * phases 7-10: gradients through the solve of the certified configuration
     (ReLU dynamics, scale_nominal off, t_max 0.1, max_steps 8) and of the
     flagship (scale_nominal on), and the AutoAttack standard suite on the
