@@ -25,7 +25,21 @@ and timing both:
     certified configuration (apgd-ce, apgd-t, fab-t, square; 512 images,
     L2 eps 0.141, 100 iterations, 5000 Square queries): K2 (scale_nominal
     off and on), K3 on Q^H as the conv backward, and K1 and K3 in every
-    attack forward.
+    attack forward;
+  * phases 11-13: certification on the trained checkpoint
+    (run_data/certified_full/ckpt/best_torch.npz) and the synthetic test
+    set (seed 0, 512 images) over the whole n = 10, T = 40 grid
+    (41,320,837 cells): the grid enumeration (built with g++) and 512/512
+    clean (11); the CROWN sweep on test images 4-11, held to the certified
+    set of run_data/certified_full/certify_stream_full_rep2.jsonl.json,
+    with one block's device time by stage and its peak memory, and the
+    synthetic sweep of bench_certify.py (12); the Lipschitz / larger-T
+    sweep and exact_witness on test images 0-15 through K1, held to
+    lips_stream_full.jsonl.json and exact_witnesses.json, with blocks
+    through K1 against the same blocks through rhs_reference (13).
+
+``--phases certify`` runs phases 1, 2 and 11-13 only, for work on the
+certification path; it prints no result line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -37,6 +51,7 @@ time), the last line the contract object
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import re
@@ -87,6 +102,18 @@ ATTACK_IMAGES, ATTACK_EPS, ATTACK_ITERS, SQUARE_QUERIES = 512, 0.141, 100, 5000
 # active-set boundary: there the gradient jumps, and two correct float32
 # evaluations (the kernel's and cuBLAS's sum orders) may take different sides
 KINK_MARGIN, ACTIVE_MARGIN = 1e-5, 1e-4
+# phases 11-13: the certification protocol of run_data/certified_full
+# (configs/certify/cifar_certify.yaml: T 40, eps 0.141, t_max 1, chunk 8192)
+CERT_DIR = ROOT / "run_data" / "certified_full"
+CERT_T, CERT_EPS, CERT_CHUNK, CERT_CELLS = 40, 0.141, 8192, 41_320_837
+CERT_T_MAX, CERT_MAX_STEPS = 1.0, 64
+CROWN_IMAGES = range(4, 12)  # the artifact certifies 4, 5, 6, 8, 9, 10; not 7, 11
+LIPS_IMAGES = range(0, 16)
+# an image whose worst value lies this close to zero is held by its margin,
+# any other by its verdict; K1 blocks against plain blocks at the same
+CERT_MARGIN = 1e-4
+# bench_certify.py's synthetic sweep: 8 images x 4096 cells, 10 times
+BENCH_IMAGES, BENCH_CHUNK, BENCH_INNER = 8, 4096, 10
 
 
 def log(msg: str) -> None:
@@ -652,7 +679,355 @@ def attack_phase(model, dev, n_iter=ATTACK_ITERS,
     return {"launches": launches}
 
 
+def cert_rows(cert, feats, labels, eta):
+    """One chunk's rows as Certifier.crown_block makes them."""
+    from fiode_tpu_torch.verify.certify import label_perms
+    perms = label_perms(labels, cert.n)
+    I, (C, n) = len(labels), eta.shape
+    x_biases = feats @ cert.U.T + cert.bU
+    eta_l = cert.swap_columns(eta, perms).reshape(I * C, n)
+    x_rows = x_biases[:, None, :].expand(I, C, -1).reshape(I * C, -1)
+    label_rows = labels[:, None].expand(I, C).reshape(I * C)
+    return x_biases, perms, eta_l, x_rows, label_rows
+
+
+def grid_phase(dev):
+    """[11 grid and checkpoint] the native enumeration at n = 10, T = 40, the
+    trained checkpoint, and its clean accuracy on the synthetic test set."""
+    from fiode_tpu_torch.entry import certify_model
+    from fiode_tpu_torch.train.data import load_dataset
+    from fiode_tpu_torch.verify.grid import (count_decision_boundary,
+                                             enumerate_decision_boundary)
+    t0 = time.perf_counter()
+    count = count_decision_boundary(N_CLASSES, CERT_T)
+    grid = enumerate_decision_boundary(N_CLASSES, CERT_T)
+    enum_s = time.perf_counter() - t0
+    g = torch.from_numpy(grid).to(dev)
+    lattice = (g * CERT_T).round()
+    sum_err = (g.sum(-1) - 1).abs().max().item()
+    on_lattice = (g * CERT_T - lattice).abs().max().item()
+    tied = bool((lattice[:, 0] == lattice[:, 1:].amax(-1)).all())
+    sums = bool((lattice.sum(-1) == CERT_T).all())
+    log(f"[11 grid] n={N_CLASSES} T={CERT_T}: {len(grid):,} cells (count "
+        f"{count:,}) enumerated in {enum_s:.1f} s | max|sum - 1|={sum_err:.2e} "
+        f"| lattice sums == T: {sums} | coordinate 0 ties the max: {tied}")
+    if not (count == len(grid) == CERT_CELLS and sums and tied
+            and sum_err <= 1e-6 and on_lattice <= 1e-4):
+        raise RuntimeError("the decision-boundary grid is wrong")
+    del g, lattice
+
+    model = certify_model(t_max=CERT_T_MAX, max_steps=CERT_MAX_STEPS, device=dev,
+                          checkpoint=CERT_DIR / "ckpt" / "best_torch.npz")
+    ds = load_dataset("CIFAR10", str(ROOT / "data"))
+    if not ds.synthetic or len(ds.test_x) != 512:
+        raise RuntimeError("phases 11-13 run on the 512-image synthetic test set")
+    x = torch.from_numpy(ds.test_x).to(dev)
+    y = torch.from_numpy(ds.test_y).to(dev, torch.long)
+    with torch.no_grad():
+        sol = model.solve(x)
+    clean = int((model.output_fn(sol.ys[-1]).argmax(-1) == y).sum())
+    want = json.loads((CERT_DIR / "certify_stream_full_rep2.jsonl.json").read_text())
+    log(f"[11 checkpoint] best_torch.npz on {len(x)} synthetic test images: clean "
+        f"{clean}/{len(x)} (artifact {len(want['clean_idx'])}/{want['n_images']}) | "
+        f"nfe {sol.nfe} attempts {sol.attempts} of max_steps {model.max_steps}")
+    if clean != len(want["clean_idx"]) or clean != len(x):
+        raise RuntimeError(f"clean accuracy {clean}/{len(x)} is not the artifact's")
+    if sol.attempts >= model.max_steps:
+        raise RuntimeError("the clean solve used its whole step budget")
+    return model, grid, x, y
+
+
+def crown_phase(model, grid, x, y, dev) -> dict:
+    """[12 CROWN] the sweep on CROWN_IMAGES against the artifact's certified
+    set; one block by stage; bench_certify.py's synthetic sweep."""
+    from fiode_tpu_torch.verify.certify import Certifier, float32_matmuls
+    from fiode_tpu_torch.verify.crown import crown_mlp_bounds
+    from fiode_tpu_torch.verify.ibp_qp import ibp_cbf_qp, worst_case_vdot
+    cert = Certifier(model, T=CERT_T, eps_input=CERT_EPS, chunk=CERT_CHUNK,
+                     grid=grid)
+    want = json.loads((CERT_DIR / "certify_stream_full_rep2.jsonl.json").read_text())
+    if abs(cert.kappa - want["kappa"]) > 1e-12 or want["T"] != CERT_T:
+        raise RuntimeError(f"kappa {cert.kappa} is not the artifact's {want['kappa']}")
+    idx = list(CROWN_IMAGES)
+    xs, ys = x[idx[0]:idx[-1] + 1], y[idx[0]:idx[-1] + 1]
+
+    # the sweep must run with TF32 off whatever the process says, and put
+    # the process's setting back
+    flags_inside = []
+    block = cert.crown_block
+
+    def spy(*args):
+        flags_inside.append((torch.backends.cuda.matmul.allow_tf32,
+                             torch.backends.cudnn.allow_tf32))
+        return block(*args)
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with mock.patch.object(cert, "crown_block", spy):
+        res = cert.certify(xs, ys, method="crown")
+    launches = counts()
+    restored = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if set(flags_inside) != {(False, False)} or restored != (True, True):
+        raise RuntimeError(f"TF32 inside the sweep {set(flags_inside)}, after it "
+                           f"{restored}")
+    got = [i for i, c in zip(idx, res.certified) if c]
+    expect = [i for i in want["certified_idx"] if i in CROWN_IMAGES]
+    for i, w, c in zip(idx, res.worst, res.certified):
+        log(f"[12 crown] image {i} label {int(y[i])}: worst Vdot + kappa "
+            f"{w:+.6f} -> {'certified' if c else 'not certified'} (artifact: "
+            f"{'certified' if i in expect else 'not certified'})")
+    rate = res.cells_checked / res.seconds
+    log(f"[12 crown] images {idx[0]}-{idx[-1]}: clean {int(res.clean.sum())}/"
+        f"{len(idx)}, certified {got} (artifact {expect}) | "
+        f"{res.cells_checked:,} image-cells in {res.seconds:.1f} s, "
+        f"{rate:,.0f} image-cells/s | peak device memory {peak:.2f} GiB | TF32 off "
+        f"inside {len(flags_inside)} blocks, restored after | launches {launches}")
+    if not res.clean.all() or got != expect:
+        raise RuntimeError(f"CROWN certified {got}, the artifact {expect}")
+    if res.cells_checked != len(idx) * CERT_CELLS:
+        raise RuntimeError("the CROWN sweep did not cover the grid")
+    if launches["fused_rhs"] == 0 or launches["fused_freq_apply"] != 2 * len(CONV_SHAPES):
+        raise RuntimeError(f"the clean check's launches: {launches}")
+
+    # one chunk by stage (device time between events), then under the profiler
+    with torch.no_grad(), float32_matmuls():
+        feats = model.features(xs)
+        eta = torch.from_numpy(grid[20 * CERT_CHUNK:21 * CERT_CHUNK]).to(dev)
+        x_biases, perms, eta_l, x_rows, label_rows = cert_rows(cert, feats, ys, eta)
+        a1, s1, a2 = cert.alpha_1, cert.sigma_1, cert.alpha_2
+        lb, ub = crown_mlp_bounds(cert.Ws, cert.bs, eta_l, cert.eps, x_rows)
+        f_lb, f_ub = ibp_cbf_qp(eta_l, cert.eps, lb, ub, a1, s1, a2)
+        valid = torch.ones(1, CERT_CHUNK, dtype=torch.bool, device=dev)
+        worst0 = torch.full((len(idx),), float("-inf"), device=dev)
+
+        def chunk():
+            return cert.crown_block(x_biases, ys, perms, eta[None], valid, worst0)
+
+        t = {"crown": cuda_ms(lambda: crown_mlp_bounds(
+                 cert.Ws, cert.bs, eta_l, cert.eps, x_rows), 3, 1),
+             "qp": cuda_ms(lambda: ibp_cbf_qp(
+                 eta_l, cert.eps, lb, ub, a1, s1, a2), 3, 1),
+             "vdot": cuda_ms(lambda: worst_case_vdot(
+                 eta_l, cert.eps, f_lb, f_ub, label_rows), 3, 1),
+             "chunk": cuda_ms(chunk, 3, 1)}
+        torch.cuda.reset_peak_memory_stats()
+        wall, busy, top, top_ops = device_breakdown(chunk, top=6, top_ops=12)
+        peak_chunk = torch.cuda.max_memory_allocated() / 2**30
+    rows = len(idx) * CERT_CHUNK
+    products = sum(ms for name, _, _, ms in top_ops
+                   if name in ("aten::mm", "aten::bmm", "aten::addmm"))
+    log(f"[12 device_breakdown] one chunk, {len(idx)} images x {CERT_CHUNK} cells = "
+        f"{rows} rows: {t['chunk']:.2f} ms ({rows / t['chunk'] * 1e3:,.0f} "
+        f"image-cells/s); its stages timed apart: CROWN bounds {t['crown']:.2f} "
+        f"ms, interval QP {t['qp']:.2f} ms, worst-case Vdot {t['vdot']:.2f} ms "
+        f"(sum {t['crown'] + t['qp'] + t['vdot']:.2f} ms) | under "
+        f"torch.profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+        f"{max(0.0, 1 - busy / wall):.2f}), products (mm, bmm) among the listed "
+        f"operators {products:.2f} ms | peak device memory {peak_chunk:.2f} GiB")
+    for name, ms in top:
+        log(f"[12 device_breakdown]   kernel {ms:7.2f} ms  {name[:90]}")
+    for name, shapes, calls, ms in top_ops:
+        log(f"[12 device_breakdown]   op {ms:7.2f} ms  {calls:4d} x {name} {shapes[:100]}")
+
+    # bench_certify.py's synthetic sweep with the port's functions
+    rng = torch.Generator().manual_seed(SEED)
+    n, m = N_CLASSES, MLP
+    Ws = [(torch.randn(m, n, generator=rng) / n ** 0.5).to(dev),
+          (torch.randn(m, m, generator=rng) / m ** 0.5).to(dev),
+          (torch.randn(n, m, generator=rng) / m ** 0.5).to(dev)]
+    bs = [torch.zeros(m, device=dev), torch.zeros(m, device=dev),
+          torch.zeros(n, device=dev)]
+    xb = torch.randn(BENCH_IMAGES, m, generator=rng).to(dev)
+    labels = (torch.arange(BENCH_IMAGES) % n).to(dev)
+    e0 = torch.empty(BENCH_CHUNK, n).exponential_(generator=rng)
+    e0 = (e0 / e0.sum(-1, keepdim=True)).to(dev)
+    I, C, eps = BENCH_IMAGES, BENCH_CHUNK, 1.0 / CERT_T
+    x_rows = xb[:, None, :].expand(I, C, m).reshape(I * C, m)
+    label_rows = labels[:, None].expand(I, C).reshape(I * C)
+
+    def sweep():
+        worst = torch.full((I,), float("-inf"), device=dev)
+        for i in range(BENCH_INNER):
+            e = (e0 + i * 1e-6).expand(I, C, n).reshape(I * C, n)
+            lb, ub = crown_mlp_bounds(Ws, bs, e, eps, x_rows)
+            f_lb, f_ub = ibp_cbf_qp(e, eps, lb, ub, 100.0, 0.02, 20.0)
+            v = worst_case_vdot(e, eps, f_lb, f_ub, label_rows).view(I, C)
+            worst = torch.maximum(worst, v.amax(1))
+        return worst
+
+    with torch.no_grad(), float32_matmuls():
+        sweep()
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = sweep()
+            finite = bool(torch.isfinite(w).all())  # the host read, as the JAX bench
+            best = min(best, time.perf_counter() - t0)
+    bench_rate = BENCH_INNER * C * I / best
+    log(f"[12 bench_certify] synthetic sweep, {I} images x {C} cells x "
+        f"{BENCH_INNER}, random weights, float32: {best * 1e3:.1f} ms, "
+        f"{bench_rate:,.0f} image-cells/s")
+    if not finite:
+        raise RuntimeError("the synthetic sweep is non-finite")
+    return {"launches": launches, "rate": rate}
+
+
+def lipschitz_phase(model, grid, x, y, dev) -> dict:
+    """[13 Lipschitz / larger-T through K1] the sweep and exact_witness on
+    LIPS_IMAGES against the artifacts; blocks through K1 against the same
+    blocks through rhs_reference; K1's time at a block's rows."""
+    from fiode_tpu_torch.ops.fused_rhs import fused_rhs, rhs_reference
+    from fiode_tpu_torch.verify import certify as certify_module
+    from fiode_tpu_torch.verify.certify import (Certifier, label_perms,
+                                                float32_matmuls)
+    cert = Certifier(model, T=CERT_T, eps_input=CERT_EPS, chunk=CERT_CHUNK,
+                     grid=grid)
+    want = json.loads((CERT_DIR / "lips_stream_full.jsonl.json").read_text())
+    idx = list(LIPS_IMAGES)
+    xs, ys = x[idx[0]:idx[-1] + 1], y[idx[0]:idx[-1] + 1]
+    n_chunks = -(-CERT_CELLS // CERT_CHUNK)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = cert.certify(xs, ys, method="lipschitz")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = res.cells_checked / res.seconds
+    held_by_margin = []
+    for name, verdicts, worst, expect in (
+            ("lipschitz", res.certified, res.worst, want["certified_idx"]),
+            ("larger-T", res.larger_T_certified, res.worst_larger_T,
+             want["larger_T_certified_idx"])):
+        got = [i for i, c in zip(idx, verdicts) if c]
+        expect = [i for i in expect if i in LIPS_IMAGES]
+        log(f"[13 {name}] images {idx[0]}-{idx[-1]}: certified {got} (artifact "
+            f"{expect}) | worst " + " ".join(f"{w:+.4f}" for w in worst))
+        for i, w in zip(idx, worst):
+            if (i in got) != (i in expect):
+                if abs(w) > CERT_MARGIN:
+                    raise RuntimeError(f"{name}: image {i} (worst {w}) differs from "
+                                       "the artifact")
+                held_by_margin.append((name, i, float(w)))
+    sweep_chunks = sweep_launches(n_chunks)
+    log(f"[13 lipschitz] clean {int(res.clean.sum())}/{len(idx)} | "
+        f"{res.cells_checked:,} image-cells in {res.seconds:.1f} s, {rate:,.0f} "
+        f"image-cells/s | peak device memory {peak:.2f} GiB | launches {launches} "
+        f"(K1: the clean solve's NFE + {sweep_chunks} chunks) | held by margin "
+        f"(|worst| <= {CERT_MARGIN:g}): {held_by_margin}")
+    if not res.clean.all() or res.cells_checked != len(idx) * CERT_CELLS:
+        raise RuntimeError("the Lipschitz sweep did not cover the grid")
+    if not sweep_chunks < launches["fused_rhs"] <= sweep_chunks + 6 * CERT_MAX_STEPS + 2:
+        raise RuntimeError(f"K1 launched {launches['fused_rhs']} times for "
+                           f"{sweep_chunks} chunks")
+
+    # blocks through K1 and through rhs_reference: the first and the last
+    # (padded) block of the grid
+    with torch.no_grad(), float32_matmuls():
+        feats = model.features(xs)
+        perms = label_perms(ys, cert.n)
+        p, xc_rows = cert.rhs_rows(feats, cert.chunk)
+        blocks = list(cert.iter_blocks())
+        block_err = 0.0
+        for which in (0, len(blocks) - 1):
+            etas, valids, n_valid = blocks[which]
+            start = torch.full((len(idx),), float("-inf"), device=dev)
+            before = fused_rhs.launches
+            wk = cert.lips_block(p, xc_rows, ys, perms, etas, valids,
+                                 (start, start.clone()))
+            k1 = fused_rhs.launches - before
+            with mock.patch.object(certify_module, "fused_rhs", rhs_reference):
+                wp = cert.lips_block(p, xc_rows, ys, perms, etas, valids,
+                                     (start, start.clone()))
+            if fused_rhs.launches - before != k1 or k1 != etas.shape[0]:
+                raise RuntimeError(f"K1 launches of one block: {k1}")
+            err = max((a - b).abs().max().item() for a, b in zip(wk, wp))
+            block_err = max(block_err, err)
+            log(f"[13 K1 block] block {which} ({n_valid} valid cells of "
+                f"{etas.shape[0] * etas.shape[1]}), {len(idx)} images: per-image "
+                f"worst through K1 vs rhs_reference max|d|={err:.3e} (tol "
+                f"{CERT_MARGIN:g}) | {k1} K1 launches")
+            if not err <= CERT_MARGIN:
+                raise RuntimeError(f"a block through K1 disagrees: {err}")
+        etas, valids, _ = blocks[0]
+
+        def one_block():
+            start = torch.full((len(idx),), float("-inf"), device=dev)
+            return cert.lips_block(p, xc_rows, ys, perms, etas, valids,
+                                   (start, start.clone()))
+
+        wall, busy, top, _ = device_breakdown(one_block, top=5)
+        rows = len(idx) * CERT_CHUNK
+        h = cert.swap_columns(etas[0], perms).reshape(rows, cert.n)
+        args = (cert.alpha_1, cert.sigma_1, cert.alpha_2, False,
+                model.dynamics.qp_iters)
+        got, ref = fused_rhs(h, xc_rows, p, *args), rhs_reference(h, xc_rows, p, *args)
+        k1_err = (got - ref).abs().max().item()
+        k1_ms = kernel_ms(lambda: fused_rhs(h, xc_rows, p, *args), K1_KERNELS)
+        k1_plain = cuda_ms(lambda: rhs_reference(h, xc_rows, p, *args), 5)
+        k1_bound, k1_by = rhs_bound(rows, cert.n, MLP, model.dynamics.qp_iters)
+    log(f"[13 device_breakdown] one block ({etas.shape[0]} chunks x {rows} rows): "
+        f"wall {wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+        f"{max(0.0, 1 - busy / wall):.2f}); costliest: "
+        + "; ".join(f"{name[:50]} {ms:.2f} ms" for name, ms in top))
+    log(f"[13 time] K1 at a block's rows B={rows}: kernel {k1_ms:.4f} ms | plain "
+        f"{k1_plain:.4f} ms | bound {k1_bound:.4f} ms ({k1_by}), "
+        f"{100 * k1_bound / k1_ms:.1f}% of it | max|d| vs rhs_reference "
+        f"{k1_err:.3e} (tol {K1_TOL:g})")
+    if not k1_err <= K1_TOL:
+        raise RuntimeError(f"K1 at a certification block's rows disagrees: {k1_err}")
+
+    # exact_witness: the larger-T quantity with its argmax
+    reset_counts()
+    t0 = time.perf_counter()
+    vals, cells, clean = cert.exact_witness(xs, ys)
+    wit_s = time.perf_counter() - t0
+    wit_launches = counts()
+    d_wit = float(abs(vals - res.worst_larger_T).max())
+    log(f"[13 witness] exact_witness on images {idx[0]}-{idx[-1]} in {wit_s:.1f} s: "
+        f"max|witness - larger-T worst|={d_wit:.3e} | launches {wit_launches}")
+    if not (clean.all() and d_wit <= 1e-6):
+        raise RuntimeError(f"exact_witness differs from the larger-T sweep: {d_wit}")
+    # the committed witnesses: the same cell and the same verdict.  Their
+    # values were taken with backbone features of another matmul precision
+    # and differ from a float32 evaluation in the third decimal, so the
+    # value's difference is printed, not gated.
+    committed = json.loads((CERT_DIR / "exact_witnesses.json").read_text())
+    for w in committed["witnesses"]:
+        if w["image"] in LIPS_IMAGES:
+            i = w["image"] - idx[0]
+            verdict = "refuted" if vals[i] > 0 else "tractable"
+            log(f"[13 witness] image {w['image']}: value {vals[i]:+.6f} at cell "
+                f"{int(cells[i])}, {verdict} (artifact {w['witness_value']:+.6f} at "
+                f"{w['witness_cell_idx']}, {w['verdict']})")
+            if verdict != w["verdict"] or int(cells[i]) != w["witness_cell_idx"]:
+                raise RuntimeError(f"witness of image {w['image']} differs")
+    if wit_launches["fused_rhs"] <= sweep_chunks:
+        raise RuntimeError(f"exact_witness launched K1 {wit_launches['fused_rhs']} times")
+    return {"launches": launches, "rate": rate, "k1_block_err": max(block_err, k1_err)}
+
+
+def sweep_launches(n_chunks: int) -> int:
+    """Chunks a whole sweep launches: the grid's, rounded up to whole blocks."""
+    from fiode_tpu_torch.verify.certify import SUPERCHUNK
+    return -(-n_chunks // SUPERCHUNK) * SUPERCHUNK
+
+
+def certify_phases(dev) -> dict:
+    model, grid, x, y = grid_phase(dev)
+    crown = crown_phase(model, grid, x, y, dev)
+    lips = lipschitz_phase(model, grid, x, y, dev)
+    return {"crown": crown, "lipschitz": lips}
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", choices=("all", "certify"), default="all")
+    only_certify = ap.parse_args().phases == "certify"
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on a GPU")
     if not (ROOT / "fiode_tpu_torch" / "csrc").is_dir():
@@ -660,7 +1035,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from fiode_tpu_torch.entry import certify_model, flagship
     from fiode_tpu_torch.models.backbones import KWLargeBackbone
-    from fiode_tpu_torch.ops._build import BUILD_DIR, load_library
+    from fiode_tpu_torch.ops._build import (BUILD_DIR, load_cpp_library,
+                                            load_library)
     from fiode_tpu_torch.ops.cayley import apply_freq_matrices, cayley_conv_kernel
     from fiode_tpu_torch.ops.fused_cayley_conv import _launch, fused_freq_apply
     from fiode_tpu_torch.ops import fused_rhs as fused_rhs_module
@@ -686,12 +1062,14 @@ def main() -> None:
     # (n = 10) and phase 3's wide state (n = 100); one nvcc each, together
     builds = [lambda: load_library("fused_cayley_conv"),
               lambda: fused_rhs_module.build(N_CLASSES, MLP),
-              lambda: fused_rhs_module.build(WIDE_N, MLP)]
+              lambda: load_cpp_library("grid_enum")]
+    if not only_certify:
+        builds.append(lambda: fused_rhs_module.build(WIDE_N, MLP))
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
-    log(f"[2 build] K1 + K2 (two widths) + K3 built in {build_s:.1f} s into "
-        f"{BUILD_DIR}")
+    log(f"[2 build] K1 + K2 ({'one width' if only_certify else 'two widths'}) + K3 "
+        f"+ grid_enum (g++) built in {build_s:.1f} s into {BUILD_DIR}")
     # ptxas on every kernel; the main path's own (the flagship's K1, and its
     # K2 without weight gradients: every launch of phases 5, 9 and 10) may
     # spill a stray register, not a fragment
@@ -715,6 +1093,12 @@ def main() -> None:
                     spilled.append(f"{kernel}<{flags}> {stores} bytes")
     if spilled:
         raise RuntimeError(f"kernels of the main path spill registers: {spilled}")
+
+    if only_certify:
+        certify_phases(dev)
+        log(smi)
+        log("partial run (--phases certify): no result line")
+        return
 
     model = flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev)
     errs = {"fused_rhs": 0.0, "fused_freq_apply": 0.0}
@@ -955,12 +1339,22 @@ def main() -> None:
     grad = grad_solve_phase(cmodel, dev)
     fgrad = flagship_grad_phase(model, dev)
     attack = attack_phase(cmodel, dev)
+    torch.cuda.empty_cache()
+
+    # 11-13. certification on the trained checkpoint ------------------------------
+    cert = certify_phases(dev)
+    errs["fused_rhs"] = max(errs["fused_rhs"], cert["lipschitz"]["k1_block_err"])
 
     by_phase = {name: {"5 forward solve": launches.get(name, 0),
                        "9 gradient through the solve": grad["launches"][name],
                        "9 flagship gradient": fgrad["launches"][name],
-                       "10 autoattack": attack["launches"][name]}
+                       "10 autoattack": attack["launches"][name],
+                       "12 certify crown": cert["crown"]["launches"][name],
+                       "13 certify lipschitz": cert["lipschitz"]["launches"][name]}
                 for name in attack["launches"]}
+    for name in ("fused_rhs", "fused_freq_apply"):  # the certification paths' kernels
+        if min(by_phase[name].values()) == 0:
+            raise RuntimeError(f"{name} was not launched on a path: {by_phase[name]}")
     kf = k3["forward"]
     kernels = [
         {"name": "fused_rhs", "route": "cuda",

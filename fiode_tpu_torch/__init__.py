@@ -1,8 +1,10 @@
 """PyTorch / CUDA port of fiode_tpu's flagship forward solve, the
-gradients through it, and the AutoAttack suite run on it.
+gradients through it, the AutoAttack suite run on it, and certification
+(the decision-boundary grid, CROWN / IBP bounds, the interval QP and the
+``Certifier``).
 
 Mirrors ``fiode_tpu`` module for module (``ops/``, ``models/``, ``ode/``,
-``attacks/``, ``experiment.py``).
+``attacks/``, ``verify/``, ``train/data.py``, ``experiment.py``).
 The JAX package is the reference; this package imports only torch and
 numpy.  On a CPU tensor every kernel wrapper runs its plain PyTorch
 version; on a CUDA tensor it launches the hand-written Hopper kernel built

@@ -9,6 +9,12 @@ The JAX params are a nested dict of arrays with flax names, e.g.::
 
 Both packages keep one layout ((out, in) linears, (co, ci, k, k) convs), so
 loading renames and copies, and never transposes.
+
+A checkpoint crosses as a flat ``.npz`` whose keys are the flax names joined
+by ``/`` (``backbone/CayleyConv_0/weight``), float32 arrays and nothing
+pickled: ``load_npz`` reads one into a model, ``save_npz`` writes a model's
+parameters under the same names.  ``tools/export_torch_checkpoint.py`` makes
+such a file from an orbax checkpoint of the JAX package.
 """
 from __future__ import annotations
 
@@ -19,13 +25,15 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "load_npz", "save_npz"]
 
 # flax auto-named submodules -> the port's ModuleLists
 _LISTS = {"CayleyConv": "convs", "CayleyLinear": "linears",
           "LipsLinear": "linears"}
 # flax leaf names -> the port's parameter names
 _LEAVES = {"kernel": "weight"}
+# the port's layers whose flax counterpart calls its weight "kernel"
+_KERNEL_LAYERS = ("LipsLinear",)
 
 
 def _port_name(path) -> str:
@@ -57,3 +65,51 @@ def params_from_numpy(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     }
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _unflatten(flat: Mapping[str, Any]) -> dict:
+    tree: dict = {}
+    for key, val in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return tree
+
+
+def load_npz(model: nn.Module, path) -> nn.Module:
+    """Copy the parameters stored in the flat ``.npz`` at ``path`` (flax names
+    joined by ``/``) into ``model`` in place; every parameter must be
+    matched.  Returns ``model``, on the device it was on."""
+    with np.load(path, allow_pickle=False) as flat:
+        tree = _unflatten({key: flat[key] for key in flat.files})
+    return params_from_numpy(model, tree)
+
+
+def _flax_name(model: nn.Module, name: str) -> str:
+    """The ``/``-joined flax name of the port's parameter ``name``."""
+    *parents, leaf = name.split(".")
+    out, mod, i = [], model, 0
+    while i < len(parents):
+        child = getattr(mod, parents[i])
+        if isinstance(child, nn.ModuleList):
+            child = child[int(parents[i + 1])]
+            out.append(f"{type(child).__name__}_{parents[i + 1]}")
+            i += 2
+        else:
+            out.append(parents[i])
+            i += 1
+        mod = child
+    if leaf == "weight" and type(mod).__name__ in _KERNEL_LAYERS:
+        leaf = "kernel"
+    return "/".join(out + [leaf])
+
+
+def save_npz(model: nn.Module, path) -> None:
+    """Write ``model``'s parameters to ``path`` as a flat ``.npz`` under their
+    flax names, the file ``load_npz`` and the JAX package's params tree
+    agree on."""
+    flat = {_flax_name(model, name): p.detach().cpu().numpy()
+            for name, p in model.named_parameters()}
+    np.savez(path, **flat)

@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 
+from .bridge import load_npz
 from .models.backbones import KWLargeBackbone
 from .models.dynamics import SimplexDynamics
 from .models.ivp import NeuralODEClassifier
@@ -42,12 +43,16 @@ def flagship(n_classes: int = 10, mlp_size: int = 128,
 
 def certify_model(t_max: float = 1.0, max_steps: int = 64,
                   generator: Optional[torch.Generator] = None,
-                  device: str = "cuda") -> NeuralODEClassifier:
+                  device: str = "cuda",
+                  checkpoint=None) -> NeuralODEClassifier:
     """The cifar_certify configuration: KWLarge GroupSort backbone to 10
     features, ReLU simplex dynamics (mlp 128, alpha_1 = 100, sigma_1 = 0.02,
     alpha_2 = 20, scale_nominal off), dopri5 at rtol = atol = 1e-3 to
     ``t_max`` within ``max_steps`` attempted steps.  In eval mode on
-    ``device``, weights drawn from ``generator`` on the CPU, then moved."""
+    ``device``, weights drawn from ``generator`` on the CPU, then moved;
+    ``checkpoint``, the path of a flat ``.npz`` (``bridge.load_npz``, e.g.
+    ``run_data/certified_full/ckpt/best_torch.npz``), replaces them with
+    trained ones."""
     dyn = SimplexDynamics(
         n_hidden=10, mlp_size=128, x_dim=10, activation="ReLU", dropout=0.5,
         alpha_1=100.0, alpha_2=20.0, sigma_1=0.02, scale_nominal=False,
@@ -59,6 +64,8 @@ def certify_model(t_max: float = 1.0, max_steps: int = 64,
         backbone=backbone, dynamics=dyn, t_max=t_max, rtol=1e-3, atol=1e-3,
         max_steps=max_steps,
     )
+    if checkpoint is not None:
+        load_npz(model, checkpoint)
     return model.eval().to(device)
 
 

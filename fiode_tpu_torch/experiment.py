@@ -1,9 +1,16 @@
-"""Attack evaluation (counterpart of ``run_autoattack`` in
-``fiode_tpu/experiment.py``).
+"""Runners (counterpart of ``run_sample_grid``, ``run_certify`` and
+``run_autoattack`` in ``fiode_tpu/experiment.py``).
 
-``run_autoattack`` takes a model and arrays (the JAX version takes a config
-and restores a checkpoint), runs the AutoAttack suite over them in batches,
-and returns the fields of the JAX package's artifact
+Each takes a model and arrays (the JAX versions take a config and restore a
+checkpoint; here ``entry.certify_model(checkpoint=...)`` builds the model).
+
+``run_sample_grid`` enumerates the decision-boundary grid and may save it;
+``run_certify`` sweeps it with the ``Certifier`` for the CROWN or the
+Lipschitz certificate, in one call or streamed in image batches with the
+JAX package's audit log.
+
+``run_autoattack`` runs the AutoAttack suite over the arrays in batches and
+returns the fields of the JAX package's artifact
 (``run_data/certified_full/autoattack_*.json``).
 
 Every forward the attacks make goes through ``BudgetedForward``, which
@@ -18,12 +25,76 @@ import json
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .attacks.autoattack import STANDARD, AutoAttackSuite
 from .models.ivp import NeuralODEClassifier
+from .verify.certify import Certifier, CertifyResult
+from .verify.grid import enumerate_decision_boundary
 
-__all__ = ["BudgetedForward", "run_autoattack"]
+__all__ = ["BudgetedForward", "run_autoattack", "run_certify",
+           "run_sample_grid"]
+
+
+def run_sample_grid(n: int = 10, T: int = 40,
+                    out_path: Optional[str] = None) -> np.ndarray:
+    """Enumerate the decision-boundary grid for n classes at resolution T,
+    float32 (cells, n); saved with ``numpy.save`` to ``out_path`` if given
+    (``run_certify`` takes the array back as ``grid``)."""
+    t0 = time.time()
+    grid = enumerate_decision_boundary(n, T)
+    print(f"grid n={n} T={T}: {grid.shape[0]:,} cells in "
+          f"{time.time() - t0:.1f}s")
+    if out_path:
+        np.save(out_path, grid)
+    return grid
+
+
+def run_certify(model: NeuralODEClassifier, xs, ys, method: str = "crown", *,
+                T: int = 40, eps: float = 36 / 255, chunk: int = 8192,
+                grid: Optional[np.ndarray] = None,
+                scale_nominal: Optional[bool] = None,
+                start_ind: int = 0, max_images: Optional[int] = None,
+                image_batch: Optional[int] = None,
+                stream_out: Optional[str] = None,
+                refine_rounds: int = 0, **certifier_kw) -> CertifyResult:
+    """Certify the test images ``xs`` (N, C, H, W) in [0, 1] with labels
+    ``ys`` from index ``start_ind`` on (at most ``max_images`` of them) on
+    the device the model lies on; ``method`` is "crown" or "lipschitz".
+
+    ``scale_nominal`` defaults to the dynamics' own flag.  With
+    ``image_batch`` (or ``stream_out``, which implies batches of 10) the
+    sweep is streamed: cumulative accuracies are printed after every batch
+    and ``stream_out`` gets one JSON line per batch and a ``.json`` summary.
+    Further keywords go to the ``Certifier`` (``alpha_iters``,
+    ``alpha_objective``, ``with_upper``, ``std_min``).
+    """
+    if refine_rounds > 0:
+        raise NotImplementedError(
+            "refine_rounds > 0 needs the branch-and-bound refinement of "
+            "fiode_tpu/verify/refine.py and refine_lips.py, which this "
+            "package does not have yet"
+        )
+    end = len(xs) if max_images is None else min(len(xs), start_ind + max_images)
+    xs, ys = xs[start_ind:end], ys[start_ind:end]
+    if scale_nominal is None:
+        scale_nominal = model.dynamics.scale_nominal
+    cert = Certifier(model, T=T, eps_input=eps, chunk=chunk, grid=grid,
+                     scale_nominal=scale_nominal, **certifier_kw)
+    if stream_out and not image_batch:
+        # a requested audit log implies the streamed sweep
+        image_batch = 10
+    if image_batch:
+        res = cert.certify_stream(xs, ys, method=method,
+                                  image_batch=image_batch,
+                                  out_path=stream_out, start_ind=start_ind)
+    else:
+        res = cert.certify(xs, ys, method=method, progress_every=10)
+    print(f"[{method}] range {start_ind}:{end} clean={res.clean_acc:.4f} "
+          f"certified={res.certified_acc:.4f} "
+          f"({res.cells_per_sec:,.0f} cells/sec)")
+    return res
 
 
 class BudgetedForward:

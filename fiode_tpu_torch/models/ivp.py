@@ -77,17 +77,21 @@ class NeuralODEClassifier(nn.Module):
         xc = (torch.matmul(feats, U.T) + bU + b1).contiguous()
         return p, xc
 
-    def solve(self, x, ts=None) -> OdeSolution:
+    def solve(self, x, ts=None, *,
+              scale_nominal: Optional[bool] = None) -> OdeSolution:
         """Integrate from h0 and return the OdeSolution over ``ts``
         (default [0, t_max]); ``attempts`` on it counts the steps tried,
-        which reach ``max_steps`` when the budget ran out."""
+        which reach ``max_steps`` when the budget ran out.
+        ``scale_nominal`` overrides the dynamics' own flag for this solve
+        (a certifier integrates the field its certificate bounds)."""
         dyn = self.dynamics
         feats = self.features(x)
         p, xc = self._fused_setup(feats)
+        sn = dyn.scale_nominal if scale_nominal is None else scale_nominal
 
         def f(t, h):
             return fused_rhs(h, xc, p, dyn.alpha_1, dyn.sigma_1, dyn.alpha_2,
-                             dyn.scale_nominal, dyn.qp_iters)
+                             sn, dyn.qp_iters)
 
         if ts is None:
             ts = [0.0, self.t_max]

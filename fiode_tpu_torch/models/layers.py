@@ -55,6 +55,9 @@ class Normalize(nn.Module):
 
     def __init__(self, mu: Sequence[float], std: Sequence[float]):
         super().__init__()
+        # the values as given (double precision): a certifier's Lipschitz
+        # constant 1 / min(std) is taken from these, not from the buffer
+        self.std_values = tuple(float(v) for v in std)
         self.register_buffer("mu", torch.tensor(mu).reshape(-1, 1, 1),
                              persistent=False)
         self.register_buffer("std", torch.tensor(std).reshape(-1, 1, 1),

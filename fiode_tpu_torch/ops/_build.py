@@ -8,6 +8,10 @@ never loads a stale build.  A source may be compiled more than once with
 different ``-D`` definitions (``fused_rhs.cu`` per pair of tile counts): the
 definitions are part of the library's name.  ``nvcc``'s ``-Xptxas -v`` report (registers,
 shared memory, spills) is kept beside it as ``.log``.
+
+Host-side helpers (``csrc/<name>.cpp``, e.g. the grid enumeration) are built
+the same way with ``g++ -O3`` by ``load_cpp_library``.  A build that fails
+raises: nothing falls back to a slower path on its own.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "load_library"]
+__all__ = ["BUILD_DIR", "load_library", "load_cpp_library"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fiode_tpu_torch"
@@ -41,27 +45,43 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _build(src: Path, tag: str, command: list) -> ctypes.CDLL:
+    """Run ``command -o <library> <src>`` unless the library named by the
+    source's hash and ``tag`` exists, then load it."""
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    lib = BUILD_DIR / f"lib{src.stem}-{digest}{tag}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".tmp{os.getpid()}")
+        proc = subprocess.run([*command, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{Path(command[0]).name} failed on {src.name}:\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        tmp.replace(lib)
+    return ctypes.CDLL(str(lib))
+
+
 @functools.cache
 def load_library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` with ``-D<key>=<value>`` for each pair of
     ``defines`` if its build is missing, then load it."""
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
     tag = "".join(f"-{k.lower()}{v}" for k, v in defines)
-    lib = BUILD_DIR / f"lib{name}-{digest}{tag}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines),
-             "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}"
-            )
-        tmp.replace(lib)
-    return ctypes.CDLL(str(lib))
+    return _build(_CSRC / f"{name}.cu", tag,
+                  [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines)])
+
+
+@functools.cache
+def load_cpp_library(name: str) -> ctypes.CDLL:
+    """Compile the host source ``csrc/<name>.cpp`` with ``g++ -O3`` if its
+    build is missing, then load it.  Raises if there is no compiler or the
+    build fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {name}.cpp cannot be built")
+    return _build(_CSRC / f"{name}.cpp", "",
+                  [gxx, "-O3", "-std=c++17", "-shared", "-fPIC"])
 

@@ -1,8 +1,12 @@
 """The committed checkpoint run_data/certified_full/ckpt/best (KWLarge
 GroupSort backbone, ReLU dynamics, scale_nominal off), restored by the JAX
 package and bridged into the port, predicts what JAX predicts on the first
-test images; and importing the port, its attacks and its experiment
-module included, pulls in neither jax, flax nor fiode_tpu."""
+test images; the committed torch-readable copy of it
+(ckpt/best_torch.npz) holds exactly the arrays the orbax restore gives and
+round-trips through load_npz / save_npz; and importing the port (its
+attacks, experiment, certification and data modules included) or what
+chip_smoke.py imports pulls in neither jax, flax, orbax nor fiode_tpu."""
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +20,7 @@ import torch
 from fiode_tpu.experiment import _load_cfg_dataset, _restore_params, build_model
 from fiode_tpu.utils.config import compose
 from fiode_tpu_torch import params_from_numpy
+from fiode_tpu_torch.bridge import load_npz, save_npz
 from fiode_tpu_torch.entry import CIFAR_MU, CIFAR_STD
 from fiode_tpu_torch.models.backbones import KWLargeBackbone
 from fiode_tpu_torch.models.dynamics import SimplexDynamics
@@ -86,11 +91,60 @@ def test_checkpoint_predict_matches_jax(restored):
     np.testing.assert_array_equal(got_p.argmax(-1), y)
 
 
-def test_import_leaves_jax_out():
+NPZ = RUN_DIR / "ckpt" / "best_torch.npz"
+
+
+def _flat(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flat(val, prefix + (key,))
+        else:
+            yield "/".join(prefix + (key,)), np.asarray(val)
+
+
+def test_npz_holds_exactly_the_orbax_arrays(restored):
+    _, params, _, _ = restored
+    want = dict(_flat(jax.tree_util.tree_map(np.asarray, params)))
+    with np.load(NPZ, allow_pickle=False) as got:
+        assert sorted(got.files) == sorted(want)
+        for name, arr in want.items():
+            assert got[name].dtype == arr.dtype == np.float32, name
+            assert got[name].shape == arr.shape, name
+            assert got[name].tobytes() == arr.tobytes(), name
+
+
+def test_load_npz_round_trips_and_equals_the_bridge(restored, tmp_path):
+    jmodel, params, x, _ = restored
+    bridged = params_from_numpy(_port_model(jmodel),
+                                jax.tree_util.tree_map(np.asarray, params))
+    loaded = load_npz(_port_model(jmodel), NPZ)
+    for (name, a), (_, b) in zip(loaded.state_dict().items(),
+                                 bridged.state_dict().items(), strict=True):
+        assert torch.equal(a, b), name
+    out = tmp_path / "again.npz"
+    save_npz(loaded, out)
+    with np.load(NPZ) as want, np.load(out) as got:
+        assert sorted(got.files) == sorted(want.files)
+        for name in want.files:
+            assert got[name].shape == want[name].shape, name
+            assert got[name].tobytes() == want[name].tobytes(), name
+    with pytest.raises(RuntimeError):  # every parameter must be matched
+        load_npz(torch.nn.Linear(2, 2), NPZ)
+
+
+def test_certify_model_loads_the_checkpoint(restored):
+    from fiode_tpu_torch.entry import certify_model
+    _, _, x, y = restored
+    model = certify_model(device="cpu", checkpoint=NPZ)
+    assert not model.training
+    with torch.no_grad():
+        pred = model.predict(torch.from_numpy(x)).argmax(-1).numpy()
+    np.testing.assert_array_equal(pred, y)
+
+
+def _assert_imports_leave_jax_out(imports: str):
     code = (
-        "import sys, fiode_tpu_torch, fiode_tpu_torch.ops.fused_rhs, "
-        "fiode_tpu_torch.ops.fused_cayley_conv, fiode_tpu_torch.attacks, "
-        "fiode_tpu_torch.experiment\n"
+        f"import sys\n{imports}\n"
         "bad = [m for m in ('jax', 'flax', 'orbax', 'fiode_tpu') "
         "if m in sys.modules]\n"
         "print(bad)\n"
@@ -99,3 +153,23 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_import_leaves_jax_out():
+    _assert_imports_leave_jax_out(
+        "import fiode_tpu_torch, fiode_tpu_torch.ops.fused_rhs, "
+        "fiode_tpu_torch.ops.fused_cayley_conv, fiode_tpu_torch.attacks, "
+        "fiode_tpu_torch.experiment, fiode_tpu_torch.verify.certify, "
+        "fiode_tpu_torch.verify.grid, fiode_tpu_torch.verify.crown, "
+        "fiode_tpu_torch.verify.ibp_qp, fiode_tpu_torch.train.data")
+
+
+def test_chip_smoke_imports_leave_jax_out():
+    """Every import statement of chip_smoke.py, at module level or inside a
+    function, executed in a fresh interpreter."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    lines = sorted({ast.unparse(node) for node in ast.walk(tree)
+                    if isinstance(node, (ast.Import, ast.ImportFrom))
+                    and getattr(node, "module", "") != "__future__"})
+    assert any("fiode_tpu_torch.verify.certify" in ln for ln in lines)
+    _assert_imports_leave_jax_out("\n".join(lines))

@@ -253,6 +253,68 @@ def test_fused_freq_apply_backward_in_q_is_the_plain_vjp(cuda):
                                    rtol=0)
 
 
+CERT_TOL = 1e-4  # per-image worst values of a certification block
+
+
+def _tiny_classifier(seed):
+    from fiode_tpu_torch.models.backbones import TinyMLPBackbone
+    from fiode_tpu_torch.models.dynamics import SimplexDynamics
+    from fiode_tpu_torch.models.ivp import NeuralODEClassifier
+    g = torch.Generator().manual_seed(seed)
+    return NeuralODEClassifier(
+        TinyMLPBackbone(64, out_dim=10, hidden=32, mu=(0.5,), std=(0.25,),
+                        generator=g),
+        SimplexDynamics(n_hidden=10, mlp_size=128, x_dim=10, dropout=0.0,
+                        generator=g),
+        max_steps=64,
+    ).eval()
+
+
+def test_fused_rhs_at_a_certification_blocks_rows(cuda):
+    """K1 on (16 images x 8192 cells) rows, each image's xc repeated for its
+    cells and the states lattice points, as the Lipschitz sweep calls it."""
+    from fiode_tpu_torch.verify.grid import enumerate_decision_boundary
+    images, chunk, n, mlp = 16, 8192, 10, 128
+    _, xc, p = _rhs_inputs(images, n, mlp, 5, cuda)
+    grid = torch.from_numpy(enumerate_decision_boundary(n, 12)[:chunk]).to(cuda)
+    assert len(grid) == chunk
+    h = grid.repeat(images, 1)
+    xc_rows = xc[:, None, :].expand(images, chunk, mlp).reshape(-1, mlp).contiguous()
+    before = fused_rhs.launches
+    got = fused_rhs(h, xc_rows, p, A1, S1, A2, False, 30)
+    assert fused_rhs.launches == before + 1
+    want = rhs_reference(h, xc_rows, p, A1, S1, A2, False, 30)
+    torch.testing.assert_close(got, want, atol=K1_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["crown", "lipschitz"])
+def test_certifier_on_cuda_equals_certifier_on_cpu(cuda, method):
+    """The same sweep (n = 10, mlp = 128, T = 8: 1,839 cells in blocks of
+    16 x 64, the last one padded) on the card, through K1 for the Lipschitz
+    rows, and on the CPU."""
+    from fiode_tpu_torch.verify.certify import Certifier
+    import copy
+    cpu_model = _tiny_classifier(3)
+    x = torch.rand(6, 1, 8, 8, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        y = cpu_model.predict(x).argmax(-1)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    kw = dict(T=8, eps_input=0.1, chunk=64)
+    want = Certifier(cpu_model, **kw).certify(x, y, method=method,
+                                              early_exit=False)
+    before = fused_rhs.launches
+    got = Certifier(gpu_model, **kw).certify(x.to(cuda), y.to(cuda),
+                                             method=method, early_exit=False)
+    launched = fused_rhs.launches - before
+    assert got.clean.all() and want.clean.all()
+    np.testing.assert_allclose(got.worst, want.worst, atol=CERT_TOL)
+    if method == "lipschitz":
+        np.testing.assert_allclose(got.worst_larger_T, want.worst_larger_T,
+                                   atol=CERT_TOL)
+        assert launched > 2 * 16  # two blocks of 16 chunks, and the clean solve
+    assert got.cells_checked == want.cells_checked == 6 * 1839
+
+
 def test_wrappers_reject_other_devices():
     h = torch.zeros(2, 10, device="meta")
     xc = torch.zeros(2, 32, device="meta")
