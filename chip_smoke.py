@@ -36,9 +36,21 @@ and timing both:
     synthetic sweep of bench_certify.py (12); the Lipschitz / larger-T
     sweep and exact_witness on test images 0-15 through K1, held to
     lips_stream_full.jsonl.json and exact_witnesses.json, with blocks
-    through K1 against the same blocks through rhs_reference (13).
+    through K1 against the same blocks through rhs_reference (13);
+  * phase 14: branch-and-bound refinement on the same checkpoint, grid and
+    images at the budgets of the committed passes: CROWN BaB on test images
+    15, 95 and 221 (refine_full_pass5_stream.jsonl), the hybrid bound (K1
+    at every cell and box centre) on image 15 (hybrid_sweep_stream.jsonl),
+    and the Lipschitz BaB on images 3 and 7 (refine_lips_probe.json), each
+    held to the verdict, violated cells and rounds or give-up of the JAX
+    package in float32 (the artifacts' TPU counts printed beside); one
+    round's device breakdown.
 
-``--phases certify`` runs phases 1, 2 and 11-13 only, for work on the
+Phase 4 also holds K3 at a spatial size past the radix path's 32 (n = 64)
+and times it; phase 5 also checks that a solve in training mode equals the
+eval-mode solve.
+
+``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
 certification path; it prints no result line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
@@ -114,6 +126,32 @@ LIPS_IMAGES = range(0, 16)
 CERT_MARGIN = 1e-4
 # bench_certify.py's synthetic sweep: 8 images x 4096 cells, 10 times
 BENCH_IMAGES, BENCH_CHUNK, BENCH_INNER = 8, 4096, 10
+# phase 14: refinement at the budgets of the committed passes.  Their
+# violated counts came from a TPU whose backbone features were not
+# float32-exact, so the gates hold the JAX package's float32 answers on the
+# CPU for the same cells (tools/refine_cells_dump.py on the card, then
+# tools/refine_float32_reference.py) and print the artifacts' beside them.
+# CROWN BaB, all certified: image -> (violated cells, rounds, boxes)
+REFINE_IMAGES = (15, 95, 221)
+REFINE_F32 = {15: (12, 2, 36), 95: (8529, 2, 25587), 221: (8467, 3, 25425)}
+REFINE_BUDGETS = dict(alpha_iters=0, lips_box=False, max_rounds=60,
+                      collect_cap=16_000_000, frontier_cap=1 << 26,
+                      box_budget=2_000_000_000)
+# violated counts of two float32 evaluations differ by the cells within
+# their round-off of zero (~2e-5 a cell; a ReLU slope choice flips on a few)
+REFINE_VIOLATED_TOL = 5e-3
+# the hybrid bound on image 15 (hybrid_sweep_stream.jsonl: 69 violated,
+# worst +0.006005 on the TPU); float32: violated cells, worst
+HYBRID_IMAGE, HYBRID_F32, HYBRID_ARTIFACT = 15, (12, 0.003029), (69, 0.006005)
+# the Lipschitz BaB (refine_lips_probe.json): image 7 exceeds the collect
+# cap (float32: every cell violated); image 3, cut to two rounds here,
+# gives up with its violated cells (float32 and the artifact alike)
+LIPS_REFINE_BUDGETS = dict(collect_cap=12_000_000, box_budget=128_000_000,
+                           frontier_cap=1 << 25)
+LIPS_REFINE_IMAGES, LIPS_REFINE_ROUNDS = (7, 3), 2
+LIPS_REFINE_F32, LIPS_REFINE_ARTIFACT = 5_475_963, 5_475_963
+# phase 4: K3 past the radix path's spatial sizes
+K3_WIDE = (16, 16, 3, 64)
 
 
 def log(msg: str) -> None:
@@ -1008,7 +1046,8 @@ def lipschitz_phase(model, grid, x, y, dev) -> dict:
                 raise RuntimeError(f"witness of image {w['image']} differs")
     if wit_launches["fused_rhs"] <= sweep_chunks:
         raise RuntimeError(f"exact_witness launched K1 {wit_launches['fused_rhs']} times")
-    return {"launches": launches, "rate": rate, "k1_block_err": max(block_err, k1_err)}
+    return {"launches": launches, "rate": rate, "k1_block_err": max(block_err, k1_err),
+            "res": res}
 
 
 def sweep_launches(n_chunks: int) -> int:
@@ -1017,11 +1056,168 @@ def sweep_launches(n_chunks: int) -> int:
     return -(-n_chunks // SUPERCHUNK) * SUPERCHUNK
 
 
+def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
+    """[14 refine] CROWN BaB, hybrid BaB and Lipschitz BaB on the trained
+    checkpoint at the committed passes' budgets, against their artifacts;
+    one BaB round's device breakdown."""
+    import numpy as np
+    from fiode_tpu_torch.verify import refine as refine_module
+    from fiode_tpu_torch.verify import refine_lips as refine_lips_module
+    from fiode_tpu_torch.verify import refine_lips_uncertified, refine_uncertified
+    from fiode_tpu_torch.verify.certify import SUPERCHUNK, Certifier, float32_matmuls
+    t_phase = time.perf_counter()
+    cert = Certifier(model, T=CERT_T, eps_input=CERT_EPS, chunk=CERT_CHUNK,
+                     grid=grid)
+    # a refinement sweep evaluates a block of chunk x SUPERCHUNK cells a call,
+    # one K1 launch a block for the hybrid bound
+    block = CERT_CHUNK * SUPERCHUNK
+    sweep_blocks = -(-CERT_CELLS // block)
+    labels = y.cpu().numpy()
+    # each BaB's seconds and boxes, apart from the image's sweep
+    bab_log = []
+    real_bab = refine_module._bab
+
+    def timed_bab(step_fn, img, centers, *args, **kw):
+        t0 = time.perf_counter()
+        out = real_bab(step_fn, img, centers, *args, **kw)
+        bab_log.append({"seconds": time.perf_counter() - t0, "centers": centers,
+                        "label": img.label})
+        return out
+
+    def run(fn, idx, **kw):
+        bab_log.clear()
+        with (mock.patch.object(refine_module, "_bab", timed_bab),
+              mock.patch.object(refine_lips_module, "_bab", timed_bab)):
+            t0 = time.perf_counter()
+            new_cert, stats = fn(cert, x[list(idx)], labels[list(idx)], **kw)
+            seconds = time.perf_counter() - t0
+        babs = iter(list(bab_log))
+        out = []
+        for s in stats:
+            bab = next(babs) if s.base_violated > 0 else None
+            out.append((idx[s.image], s, bab))
+        return new_cert, out, seconds
+
+    reset_counts()
+    # 14a: plain CROWN BaB; the clean check runs inside (clean not given)
+    artifact = {}
+    for line in (CERT_DIR / "refine_full_pass5_stream.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["image"] in REFINE_IMAGES:
+            artifact[rec["image"]] = rec
+    _, crown_stats, crown_s = run(
+        refine_uncertified, REFINE_IMAGES,
+        certified=np.zeros(len(REFINE_IMAGES), bool), chunk=CERT_CHUNK,
+        **REFINE_BUDGETS)
+    launches_a = counts()
+    for i, s, bab in crown_stats:
+        w, (f_viol, f_rounds, f_boxes) = artifact[i], REFINE_F32[i]
+        bab_s = bab["seconds"] if bab else 0.0
+        log(f"[14a crown BaB] image {i}: violated {s.base_violated} (float32 "
+            f"{f_viol}, artifact {w['base_violated']}) | rounds {s.rounds} ({f_rounds}, "
+            f"{w['rounds']}) | boxes {s.boxes_evaluated} ({f_boxes}, "
+            f"{w['boxes_evaluated']}) | "
+            f"{'certified' if s.certified else 'not certified: ' + s.gave_up} "
+            f"(artifact {'certified' if w['certified'] else w['gave_up']}) | "
+            f"{s.seconds:.1f} s: sweep {s.seconds - bab_s:.1f} s, BaB {bab_s:.3f} s "
+            f"({s.boxes_evaluated / max(bab_s, 1e-9):,.0f} boxes/s)")
+        if not s.certified:
+            raise RuntimeError(f"CROWN BaB did not certify image {i}: {s}")
+        if abs(s.base_violated - f_viol) > max(2, REFINE_VIOLATED_TOL * f_viol):
+            raise RuntimeError(f"image {i}: {s.base_violated} violated cells, "
+                               f"float32 {f_viol}")
+        if s.rounds != f_rounds:
+            raise RuntimeError(f"image {i}: {s.rounds} rounds, float32 {f_rounds}")
+    log(f"[14a crown BaB] images {list(REFINE_IMAGES)}: {crown_s:.1f} s with the "
+        f"clean check and feature pass | launches {launches_a}")
+
+    # one BaB round of image 221 (its violated cells) under the profiler
+    with torch.no_grad(), float32_matmuls():
+        centers = crown_stats[-1][2]["centers"]
+        _, step_fn = refine_module._kernels(cert)
+        i = REFINE_IMAGES[-1]
+        img = refine_module._images(cert, x, [i])(0, labels[i])
+        half = torch.full_like(centers, cert.eps)
+
+        def one_round():
+            return refine_module._evaluate(step_fn, centers, half, img, block)
+
+        one_round()
+        wall, busy, top, _ = device_breakdown(one_round, top=5)
+    log(f"[14 device_breakdown] one BaB round of image {i}, {len(centers)} boxes "
+        f"(one call, {block} rows at most): wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms (idle share {max(0.0, 1 - busy / wall):.2f}), "
+        f"{len(centers) / wall * 1e3:,.0f} boxes/s; costliest: "
+        + "; ".join(f"{name[:50]} {ms:.2f} ms" for name, ms in top))
+
+    # 14b: the hybrid bound, K1 at every cell and box centre
+    reset_counts()
+    _, hyb_stats, hyb_s = run(refine_uncertified, (HYBRID_IMAGE,),
+                              certified=np.zeros(1, bool), clean=np.ones(1, bool),
+                              chunk=CERT_CHUNK, **dict(REFINE_BUDGETS, lips_box=True))
+    launches_b = counts()
+    (_, s, bab), = hyb_stats
+    bab_s = bab["seconds"] if bab else 0.0
+    log(f"[14b hybrid BaB] image {HYBRID_IMAGE}: violated {s.base_violated} "
+        f"(float32 {HYBRID_F32[0]}, worst {HYBRID_F32[1]:+.6f}; "
+        f"hybrid_sweep_stream.jsonl {HYBRID_ARTIFACT[0]}, worst "
+        f"{HYBRID_ARTIFACT[1]:+.6f}) | "
+        f"rounds {s.rounds} | boxes {s.boxes_evaluated} | "
+        f"{'certified' if s.certified else 'not certified: ' + s.gave_up} | "
+        f"{hyb_s:.1f} s: BaB {bab_s:.3f} s | launches {launches_b} (K1: "
+        f"{sweep_blocks} sweep blocks + one a BaB round's block)")
+    if not s.certified or abs(s.base_violated - HYBRID_F32[0]) > 2:
+        raise RuntimeError(f"hybrid BaB on image {HYBRID_IMAGE}: {s}")
+    if not launches_b["fused_rhs"] > sweep_blocks:
+        raise RuntimeError(f"K1 ran on no BaB box: {launches_b['fused_rhs']} launches "
+                           f"for {sweep_blocks} sweep blocks")
+
+    # 14c: the Lipschitz BaB, with phase 13's verdicts
+    reset_counts()
+    lips_stats = []
+    lips_s = 0.0
+    for i in LIPS_REFINE_IMAGES:
+        k = list(LIPS_IMAGES).index(i)
+        rounds = LIPS_REFINE_ROUNDS if i == 3 else 60
+        _, stats, secs = run(
+            refine_lips_uncertified, (i,),
+            certified=lips_res.certified[k:k + 1],
+            exact_ok=lips_res.larger_T_certified[k:k + 1], clean=np.ones(1, bool),
+            chunk=CERT_CHUNK, max_rounds=rounds, **LIPS_REFINE_BUDGETS)
+        lips_stats += stats
+        lips_s += secs
+    launches_c = counts()
+    for i, s, bab in lips_stats:
+        bab_s = bab["seconds"] if bab else 0.0
+        log(f"[14c lipschitz BaB] image {i}: violated {s.base_violated} | rounds "
+            f"{s.rounds} | boxes {s.boxes_evaluated} | "
+            f"{'certified' if s.certified else 'not certified: ' + s.gave_up} | "
+            f"{s.seconds:.1f} s: BaB {bab_s:.2f} s "
+            f"({s.boxes_evaluated / max(bab_s, 1e-9):,.0f} boxes/s)")
+    by_image = {i: s for i, s, _ in lips_stats}
+    s7, s3 = by_image[7], by_image[3]
+    log(f"[14c lipschitz BaB] image 3: float32 {LIPS_REFINE_F32} violated cells; "
+        f"artifact: image 7 collect_cap, image 3 {LIPS_REFINE_ARTIFACT} violated cells "
+        f"(frontier_cap after 7 rounds there; {LIPS_REFINE_ROUNDS} rounds here) | "
+        f"launches {launches_c}")
+    if s7.gave_up != "collect_cap" or s7.certified:
+        raise RuntimeError(f"image 7 did not give up with collect_cap: {s7}")
+    if (abs(s3.base_violated - LIPS_REFINE_F32) > 1e-3 * LIPS_REFINE_F32
+            or s3.certified or s3.gave_up != "rounds"):
+        raise RuntimeError(f"image 3: {s3}")
+
+    seconds = time.perf_counter() - t_phase
+    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
+    log(f"[14 refine] phase 14 in {seconds:.1f} s | launches {launches}")
+    return {"launches": launches, "seconds": seconds}
+
+
 def certify_phases(dev) -> dict:
     model, grid, x, y = grid_phase(dev)
     crown = crown_phase(model, grid, x, y, dev)
     lips = lipschitz_phase(model, grid, x, y, dev)
-    return {"crown": crown, "lipschitz": lips}
+    refine = refine_phase(model, grid, x, y, dev, lips["res"])
+    return {"crown": crown, "lipschitz": lips, "refine": refine}
 
 
 def main() -> None:
@@ -1200,6 +1396,23 @@ def main() -> None:
             ci, co, k, n = MNIST_CONV_SHAPES[i]
             x = torch.randn(K3_BATCH, ci, n, n, generator=gen(18 + i)).to(dev)
             check_k3(f"MNIST layer {i}", x, Q)
+        # past the radix path's sizes: the direct passes, one plane a block
+        ci, co, k, n = K3_WIDE
+        Qw = cayley_conv_kernel(0.1 * torch.randn(co, ci, k, k, generator=gen(22)).to(dev),
+                                torch.tensor(1.1, device=dev), n)
+        xw = torch.randn(K3_BATCH, ci, n, n, generator=gen(23)).to(dev)
+        check_k3(f"n={n}", xw, Qw)
+        Qwr, Qwi = Qw.real.contiguous(), Qw.imag.contiguous()
+        k3_wide = {"kernel": cuda_ms(lambda: fused_freq_apply(xw, Qwr, Qwi), 10),
+                   "plain": cuda_ms(lambda: apply_freq_matrices(xw, Qw, impl="dft"), 5),
+                   "fft": cuda_ms(lambda: apply_freq_matrices(xw, Qw, impl="fft"), 10)}
+        k3_wide["bound"], k3_wide_by = conv_bound(K3_BATCH, ci, co, n)
+        log(f"[4 time] K3 {ci}->{co} @{n} B={K3_BATCH}: kernel {k3_wide['kernel']:.3f} "
+            f"ms | plain dft {k3_wide['plain']:.3f} ms | fft {k3_wide['fft']:.3f} ms | "
+            f"bound {k3_wide['bound']:.4f} ms ({k3_wide_by}), "
+            f"{100 * k3_wide['bound'] / k3_wide['kernel']:.1f}% of it | stages "
+            + (", ".join(f"{k} {v:.3f} ms" for k, v in k3_stage_ms(
+                lambda t: fused_freq_apply(t, Qwr, Qwi), xw).items()) or "not measured"))
 
     # 5. end to end -----------------------------------------------------------
     def checked_solve(x):
@@ -1235,6 +1448,16 @@ def main() -> None:
     if launches["fused_freq_apply"] != len(CONV_SHAPES):
         raise RuntimeError(f"K3 launched {launches['fused_freq_apply']} times, "
                            f"want {len(CONV_SHAPES)} per forward")
+    # training mode changes nothing: the solve never applies dropout
+    model.train()
+    with torch.no_grad():
+        sol_t = checked_solve(x)
+    model.eval()
+    same = torch.equal(sol_t.ys, sol_k.ys) and sol_t.nfe == sol_k.nfe
+    log(f"[5 e2e] training-mode solve: nfe={sol_t.nfe}, equal to the eval-mode "
+        f"solve: {same}")
+    if not same:
+        raise RuntimeError("a training-mode solve differs from the eval-mode solve")
 
     # 6. timing ---------------------------------------------------------------
     xt = torch.rand(TIME_BATCH, 3, 32, 32, generator=gen(4)).to(dev)
@@ -1350,7 +1573,8 @@ def main() -> None:
                        "9 flagship gradient": fgrad["launches"][name],
                        "10 autoattack": attack["launches"][name],
                        "12 certify crown": cert["crown"]["launches"][name],
-                       "13 certify lipschitz": cert["lipschitz"]["launches"][name]}
+                       "13 certify lipschitz": cert["lipschitz"]["launches"][name],
+                       "14 refine": cert["refine"]["launches"][name]}
                 for name in attack["launches"]}
     for name in ("fused_rhs", "fused_freq_apply"):  # the certification paths' kernels
         if min(by_phase[name].values()) == 0:

@@ -19,7 +19,7 @@
 //      in registers, one thread per pair of rows and then per column:
 //      radix-2 passes for n = 8, 16, 32 (two real rows as one complex FFT;
 //      the real DC and Nyquist columns as one more), a direct O(n) pass for
-//      any other n.  X is written as (F, B ci) real and imaginary planes,
+//      any other n (see "Spatial sizes" below).  X is written as (F, B ci) real and imaginary planes,
 //      F B ci 8 bytes, i.e. (M = images) x (K = ci) row-major per
 //      frequency; the tile's (F, P) block goes through shared memory so
 //      that the stores are 16-byte and contiguous.
@@ -39,7 +39,15 @@
 //      loads, runs the inverse column then row passes (radix or direct, as
 //      in 1) and writes out (B, co, n, n) with 16-byte stores.
 // Shared memory per block: the radix passes 68 KB (n = 32), 36 KB (16) and
-// 21 KB (8); the mix 24-83 KB; the direct passes at most 48 KB.
+// 21 KB (8); the mix 24-83 KB; the direct passes at most 48 KB, or one
+// plane in up to 227 KB.
+//
+// Spatial sizes: every n >= 1.  A direct pass holds P planes per block, as
+// many as fit in 48 KB (up to 64); where not even one fits (n >= 78), one
+// plane in opt-in dynamic shared memory up to 227 KB (n <= 169); beyond
+// that, each pass runs as two launches through device memory (rows into a
+// scratch T, then columns out of it), the same sums in the same order.  The
+// mix is launched once per 65535 frequencies (the grid's z limit).
 // Every output is summed by one thread (one mma accumulator lane) in a
 // fixed order (no atomics), so results are bit-reproducible from run to run.
 #include <cuda_runtime.h>
@@ -47,9 +55,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxN = 32;              // largest spatial size handled
 constexpr int kDirectSmemFloats = 12288;  // 48 KB per block, direct passes
+constexpr int kOptInSmemFloats = 232448 / 4;  // a block's opt-in ceiling, 227 KB
 constexpr int kDirectMaxPlanes = 64;
+constexpr int kMaxGridZ = 65535;
 
 // ---------------------------------------------------------------------------
 // radix-2 transforms in registers
@@ -494,6 +503,110 @@ irdft_direct_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
   }
 }
 
+// The direct passes through device memory, for planes too large for one
+// block's shared memory: each pass is two launches, one thread per output
+// element, the twiddles read through the read-only cache.  The sums and
+// their order are those of the kernels above.  t (2, planes, n, nf): the
+// row pass's T (forward) or the column pass's S (inverse).
+
+__global__ void __launch_bounds__(kThreads)
+rdft_rows_kernel(const float* __restrict__ x, const float* __restrict__ tw,
+                 float* __restrict__ tr, float* __restrict__ ti,
+                 size_t planes, int n) {
+  const int nf = n / 2 + 1;
+  const size_t total = planes * n * nf;
+  for (size_t idx = blockIdx.x * (size_t)kThreads + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * kThreads) {
+    const int g = (int)(idx % nf);
+    const float* v = x + (idx / nf) * n;  // row (p, i)
+    float ar = 0.f, ai = 0.f;
+    for (int j = 0, k = 0; j < n; ++j) {
+      const float vj = __ldg(v + j);
+      ar = fmaf(vj, __ldg(tw + k), ar);
+      ai = fmaf(-vj, __ldg(tw + n + k), ai);
+      k += g;
+      if (k >= n) k -= n;
+    }
+    tr[idx] = ar;
+    ti[idx] = ai;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rdft_cols_kernel(const float* __restrict__ tr, const float* __restrict__ ti,
+                 const float* __restrict__ tw, float* __restrict__ xr,
+                 float* __restrict__ xi, size_t planes, int n) {
+  const int nf = n / 2 + 1, F = n * nf;
+  const size_t total = planes * F;
+  for (size_t idx = blockIdx.x * (size_t)kThreads + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * kThreads) {
+    const size_t p = idx % planes;
+    const int q = (int)(idx / planes);  // X (F, planes): p fastest
+    const int f = q / nf, g = q % nf;
+    const size_t base = p * n * nf + g;
+    float ar = 0.f, ai = 0.f;
+    for (int i = 0, k = 0; i < n; ++i) {
+      const float vr = __ldg(tr + base + (size_t)i * nf);
+      const float vi = __ldg(ti + base + (size_t)i * nf);
+      const float c = __ldg(tw + k), sn = __ldg(tw + n + k);
+      ar += c * vr + sn * vi;
+      ai += c * vi - sn * vr;
+      k += f;
+      if (k >= n) k -= n;
+    }
+    xr[idx] = ar;
+    xi[idx] = ai;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+irdft_cols_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                  const float* __restrict__ tw, float* __restrict__ sr,
+                  float* __restrict__ si, size_t planes, int n) {
+  const int nf = n / 2 + 1;
+  const size_t total = planes * n * nf;
+  for (size_t idx = blockIdx.x * (size_t)kThreads + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * kThreads) {
+    const int g = (int)(idx % nf), a = (int)((idx / nf) % n);
+    const size_t p = idx / ((size_t)n * nf);
+    float ar = 0.f, ai = 0.f;
+    for (int f = 0, k = 0; f < n; ++f) {
+      const size_t at = (size_t)(f * nf + g) * planes + p;
+      const float vr = __ldg(yr + at), vi = __ldg(yi + at);
+      const float c = __ldg(tw + k), sn = __ldg(tw + n + k);
+      ar += c * vr - sn * vi;
+      ai += c * vi + sn * vr;
+      k += a;
+      if (k >= n) k -= n;
+    }
+    sr[idx] = ar;
+    si[idx] = ai;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+irdft_rows_kernel(const float* __restrict__ sr, const float* __restrict__ si,
+                  const float* __restrict__ tw, float* __restrict__ out,
+                  size_t planes, int n) {
+  const int nf = n / 2 + 1, half = (n + 1) / 2;
+  const float scale = 1.f / (float)(n * n);
+  const size_t total = planes * n * n;
+  for (size_t idx = blockIdx.x * (size_t)kThreads + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * kThreads) {
+    const int j = (int)(idx % n);
+    const float* rr = sr + (idx / n) * nf;  // row (p, a)
+    const float* ri = si + (idx / n) * nf;
+    float acc = 0.f;
+    for (int g = 0, k = 0; g < nf; ++g) {
+      const float w = (g > 0 && g < half) ? 2.f : 1.f;
+      acc += w * (__ldg(tw + k) * __ldg(rr + g) - __ldg(tw + n + k) * __ldg(ri + g));
+      k += j;
+      if (k >= n) k -= n;
+    }
+    out[idx] = acc * scale;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the per-frequency mix: a batched complex GEMM, images as M
 
@@ -577,7 +690,7 @@ mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
            const float* __restrict__ qr, const float* __restrict__ qi,
            float* __restrict__ yr, float* __restrict__ yi, int B, int K,
            int Nc, long long sq, long long so, long long sc, float qsign,
-           int vec_x, int vec_q) {
+           int vec_x, int vec_q, int q0) {
   constexpr int WARPS_N = BN / WN, MI = WM / 16, NI = WN / 8;
   static_assert((BM / WM) * WARPS_N * 32 == kThreads, "8 warps a block");
   static_assert(BK % 8 == 0 && WM % 16 == 0 && WN % 8 == 0, "mma tiles");
@@ -589,7 +702,7 @@ mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float* swr = sxi + 2 * XS;     // (2, BN, kSK)
   float* swi = swr + 2 * WS;
 
-  const int q = blockIdx.z;
+  const int q = q0 + blockIdx.z;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
   const float* xqr = xr + (size_t)q * B * K;
@@ -780,15 +893,37 @@ cudaError_t launch_irdft_radix(const float* yr, const float* yi,
   return cudaGetLastError();
 }
 
-// planes per block of a direct pass within kDirectSmemFloats
+// planes per block of a direct pass: as many as fit in kDirectSmemFloats,
+// else one in opt-in shared memory, else 0 (the pass goes through device
+// memory)
 int direct_planes(int n, int per_plane) {
   int P = (kDirectSmemFloats - 2 * n) / per_plane;
   if (P > kDirectMaxPlanes) P = kDirectMaxPlanes;
-  return P < 1 ? 1 : P;
+  if (P >= 1) return P;
+  return 2 * n + per_plane <= kOptInSmemFloats ? 1 : 0;
+}
+
+int rdft_plane_floats(int n) { return n * n + 2 * n * (n / 2 + 1); }
+int irdft_plane_floats(int n) { return 4 * n * (n / 2 + 1); }
+
+// blocks of a grid-stride launch over `total` elements
+unsigned grid_for(size_t total) {
+  const size_t blocks = (total + kThreads - 1) / kThreads;
+  return blocks < (1u << 20) ? (unsigned)blocks : (1u << 20);
+}
+
+// raise a direct kernel's dynamic shared memory limit where it needs more
+// than the default 48 KB
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= sizeof(float) * kDirectSmemFloats) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 cudaError_t launch_rdft(int n, int radix, const float* x, const float* tw,
-                        float* xr, float* xi, int planes, cudaStream_t s) {
+                        float* xr, float* xi, float* tmp, int planes,
+                        cudaStream_t s) {
   if (radix) {
     switch (n) {
       case 8: return launch_rdft_radix<8>(x, tw, xr, xi, planes, s);
@@ -797,16 +932,28 @@ cudaError_t launch_rdft(int n, int radix, const float* x, const float* tw,
       default: return cudaErrorInvalidValue;
     }
   }
-  const int nf = n / 2 + 1;
-  const int P = direct_planes(n, n * n + 2 * n * nf);
-  const size_t smem = sizeof(float) * (2 * n + P * (n * n + 2 * n * nf));
+  const int per = rdft_plane_floats(n);
+  const int P = direct_planes(n, per);
+  if (P == 0) {
+    const size_t half = (size_t)planes * n * (n / 2 + 1);
+    rdft_rows_kernel<<<grid_for(half), kThreads, 0, s>>>(x, tw, tmp, tmp + half,
+                                                         planes, n);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    rdft_cols_kernel<<<grid_for(half), kThreads, 0, s>>>(tmp, tmp + half, tw, xr,
+                                                         xi, planes, n);
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(float) * (2 * n + (size_t)P * per);
+  cudaError_t err = allow_smem(rdft_direct_kernel, smem);
+  if (err != cudaSuccess) return err;
   const int grid = (planes + P - 1) / P;
   rdft_direct_kernel<<<grid, kThreads, smem, s>>>(x, tw, xr, xi, planes, n, P);
   return cudaGetLastError();
 }
 
 cudaError_t launch_irdft(int n, int radix, const float* yr, const float* yi,
-                         const float* tw, float* out, int planes,
+                         const float* tw, float* out, float* tmp, int planes,
                          cudaStream_t s) {
   if (radix) {
     switch (n) {
@@ -816,9 +963,21 @@ cudaError_t launch_irdft(int n, int radix, const float* yr, const float* yi,
       default: return cudaErrorInvalidValue;
     }
   }
-  const int nf = n / 2 + 1;
-  const int P = direct_planes(n, 4 * n * nf);
-  const size_t smem = sizeof(float) * (2 * n + P * 4 * n * nf);
+  const int per = irdft_plane_floats(n);
+  const int P = direct_planes(n, per);
+  if (P == 0) {
+    const size_t half = (size_t)planes * n * (n / 2 + 1);
+    irdft_cols_kernel<<<grid_for(half), kThreads, 0, s>>>(yr, yi, tw, tmp,
+                                                          tmp + half, planes, n);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    irdft_rows_kernel<<<grid_for((size_t)planes * n * n), kThreads, 0, s>>>(
+        tmp, tmp + half, tw, out, planes, n);
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(float) * (2 * n + (size_t)P * per);
+  cudaError_t err = allow_smem(irdft_direct_kernel, smem);
+  if (err != cudaSuccess) return err;
   const int grid = (planes + P - 1) / P;
   irdft_direct_kernel<<<grid, kThreads, smem, s>>>(yr, yi, tw, out, planes, n,
                                                    P);
@@ -838,10 +997,15 @@ cudaError_t launch_mix_tile(const float* xr, const float* xi, const float* qr,
   // 16-byte copies need K, the row strides and the bases in 4-float units
   const int vec_x = K % 4 == 0;
   const int vec_q = sc == 1 && so % 4 == 0 && sq % 4 == 0 && K % 4 == 0;
-  const dim3 grid((B + BM - 1) / BM, (Nc + BN - 1) / BN, F);
-  mix_kernel<BM, BN, WM, WN, BK><<<grid, kThreads, smem, s>>>(
-      xr, xi, qr, qi, yr, yi, B, K, Nc, sq, so, sc, qsign, vec_x, vec_q);
-  return cudaGetLastError();
+  for (int q0 = 0; q0 < F; q0 += kMaxGridZ) {
+    const int nq = F - q0 < kMaxGridZ ? F - q0 : kMaxGridZ;
+    const dim3 grid((B + BM - 1) / BM, (Nc + BN - 1) / BN, nq);
+    mix_kernel<BM, BN, WM, WN, BK><<<grid, kThreads, smem, s>>>(
+        xr, xi, qr, qi, yr, yi, B, K, Nc, sq, so, sc, qsign, vec_x, vec_q, q0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <int BK>
@@ -889,14 +1053,27 @@ const char* fused_cayley_conv_error_string(int code) {
 // radix = 1 takes the radix-2 passes (n = 8, 16 or 32), 0 the direct ones;
 // tw the wrapper's twiddle table, (2, n - 1) stage twiddles for the radix
 // passes and (2, n) cos, sin of 2 pi k / n for the direct ones; scratch
-// xf (2, F, B ci) and yf (2, F, B co); out (B, co, n, n).  Returns a
-// cudaError_t (0 on success).
+// xf (2, F, B ci), yf (2, F, B co) and tmp, of
+// fused_freq_apply_tmp_floats(B, ci, co, n) floats (null when that is 0);
+// out (B, co, n, n).  Returns a cudaError_t (0 on success).
+long long fused_freq_apply_tmp_floats(int B, int ci, int co, int n) {
+  if (n < 1 || (direct_planes(n, rdft_plane_floats(n)) > 0 &&
+                direct_planes(n, irdft_plane_floats(n)) > 0)) {
+    return 0;
+  }
+  const long long planes = (long long)B * (ci > co ? ci : co);
+  return 2 * planes * n * (n / 2 + 1);
+}
+
 int fused_freq_apply_forward(const float* x, const float* qr, const float* qi,
                              long long sq, long long so, long long sc,
                              float qsign, int radix, const float* tw,
-                             float* xf, float* yf, float* out, int B, int ci,
-                             int co, int n, void* stream) {
-  if (B < 0 || ci < 1 || co < 1 || n < 1 || n > kMaxN) {
+                             float* xf, float* yf, float* tmp, float* out,
+                             int B, int ci, int co, int n, void* stream) {
+  if (B < 0 || ci < 1 || co < 1 || n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B > 0 && !tmp && fused_freq_apply_tmp_floats(B, ci, co, n) > 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
@@ -907,11 +1084,12 @@ int fused_freq_apply_forward(const float* x, const float* qr, const float* qi,
   float* xi = xf + (size_t)F * pin;
   float* yr = yf;
   float* yi = yf + (size_t)F * pout;
-  cudaError_t err = launch_rdft(n, radix, x, tw, xr, xi, pin, s);
+  cudaError_t err = launch_rdft(n, radix, x, tw, xr, xi, tmp, pin, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_mix(xr, xi, qr, qi, yr, yi, F, B, ci, co, sq, so, sc, qsign, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_irdft(n, radix, yr, yi, tw, out, pout, s));
+  return static_cast<int>(
+      launch_irdft(n, radix, yr, yi, tw, out, tmp, pout, s));
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ checkpoint; here ``entry.certify_model(checkpoint=...)`` builds the model).
 ``run_sample_grid`` enumerates the decision-boundary grid and may save it;
 ``run_certify`` sweeps it with the ``Certifier`` for the CROWN or the
 Lipschitz certificate, in one call or streamed in image batches with the
-JAX package's audit log.
+JAX package's audit log, and may then branch-and-bound refine the clean but
+uncertified images (``verify/refine.py``, ``verify/refine_lips.py``).
 
 ``run_autoattack`` runs the AutoAttack suite over the arrays in batches and
 returns the fields of the JAX package's artifact
@@ -21,6 +22,7 @@ the eps-ball corner of each image) runs first, as in the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from typing import Optional, Sequence
@@ -58,7 +60,11 @@ def run_certify(model: NeuralODEClassifier, xs, ys, method: str = "crown", *,
                 start_ind: int = 0, max_images: Optional[int] = None,
                 image_batch: Optional[int] = None,
                 stream_out: Optional[str] = None,
-                refine_rounds: int = 0, **certifier_kw) -> CertifyResult:
+                refine_rounds: int = 0, refine_frontier_cap: int = 1 << 20,
+                refine_box_budget: int = 64_000_000,
+                refine_collect_cap: int = 4_000_000,
+                refine_alpha_iters: int = 0,
+                **certifier_kw) -> CertifyResult:
     """Certify the test images ``xs`` (N, C, H, W) in [0, 1] with labels
     ``ys`` from index ``start_ind`` on (at most ``max_images`` of them) on
     the device the model lies on; ``method`` is "crown" or "lipschitz".
@@ -69,13 +75,15 @@ def run_certify(model: NeuralODEClassifier, xs, ys, method: str = "crown", *,
     and ``stream_out`` gets one JSON line per batch and a ``.json`` summary.
     Further keywords go to the ``Certifier`` (``alpha_iters``,
     ``alpha_objective``, ``with_upper``, ``std_min``).
+
+    ``refine_rounds`` > 0 then branch-and-bound refines the clean but
+    uncertified images (at most that many rounds; ``refine_frontier_cap``,
+    ``refine_box_budget``, ``refine_collect_cap`` bound the work,
+    ``refine_alpha_iters`` > 0 bounds the CROWN boxes with alpha-CROWN) and
+    folds the recovered images into ``certified``; with ``stream_out`` it
+    writes ``<stream_out>.refine.json`` (absolute image indices and the
+    final ``certified_idx``), as the JAX package does.
     """
-    if refine_rounds > 0:
-        raise NotImplementedError(
-            "refine_rounds > 0 needs the branch-and-bound refinement of "
-            "fiode_tpu/verify/refine.py and refine_lips.py, which this "
-            "package does not have yet"
-        )
     end = len(xs) if max_images is None else min(len(xs), start_ind + max_images)
     xs, ys = xs[start_ind:end], ys[start_ind:end]
     if scale_nominal is None:
@@ -91,10 +99,53 @@ def run_certify(model: NeuralODEClassifier, xs, ys, method: str = "crown", *,
                                   out_path=stream_out, start_ind=start_ind)
     else:
         res = cert.certify(xs, ys, method=method, progress_every=10)
+    if refine_rounds > 0:
+        _refine(cert, xs, ys, res, method, start_ind, stream_out,
+                refine_rounds, refine_frontier_cap, refine_box_budget,
+                refine_collect_cap, refine_alpha_iters)
     print(f"[{method}] range {start_ind}:{end} clean={res.clean_acc:.4f} "
           f"certified={res.certified_acc:.4f} "
           f"({res.cells_per_sec:,.0f} cells/sec)")
     return res
+
+
+def _refine(cert, xs, ys, res, method, start, stream_out, rounds,
+            frontier_cap, box_budget, collect_cap, alpha_iters):
+    """``run_certify``'s refinement of ``res`` in place."""
+    from .verify.refine import refine_uncertified
+    from .verify.refine_lips import refine_lips_uncertified
+    rkw = dict(clean=res.clean, chunk=cert.chunk, max_rounds=rounds,
+               frontier_cap=frontier_cap, box_budget=box_budget,
+               collect_cap=collect_cap, progress_every=1)
+    if method == "crown":
+        new_cert, rstats = refine_uncertified(
+            cert, xs, ys, res.certified, alpha_iters=alpha_iters, **rkw)
+    else:
+        new_cert, rstats = refine_lips_uncertified(
+            cert, xs, ys, res.certified, exact_ok=res.larger_T_certified,
+            **rkw)
+    rec = int(new_cert.sum() - res.certified.sum())
+    print(f"[refine] recovered {rec} of "
+          f"{int((res.clean & ~res.certified).sum())} uncertified "
+          f"(rounds<={rounds})")
+    res.certified = new_cert
+    if stream_out:
+        # the stats' image indices are slice-relative: the audit file takes
+        # absolute test indices, as certified_idx does
+        abs_stats = []
+        for s in rstats:
+            d = dataclasses.asdict(s)
+            d["image"] += start
+            abs_stats.append(d)
+        with open(stream_out + ".refine.json", "w") as fh:
+            json.dump({
+                "refine_rounds": rounds,
+                "start_ind": start,
+                "recovered": rec,
+                "certified_idx": sorted(
+                    (start + np.nonzero(new_cert)[0]).tolist()),
+                "stats": abs_stats,
+            }, fh, indent=1)
 
 
 class BudgetedForward:

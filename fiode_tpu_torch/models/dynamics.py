@@ -7,8 +7,9 @@
     project:  f = simplex_cone_project(lower, f~)
 
 The four layers are CayleyLinear (the JAX package's ``cayley=True``, the
-only value its configs use).  Dropout acts inside the raw MLP in training
-mode (``module.train()``).
+only value its configs use).  Dropout acts inside the raw MLP only when the
+caller passes ``train=True``, as in the JAX package, never because of the
+module's training mode.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops.cayley import groupsort2
 from ..ops.simplex_qp import simplex_cone_project
@@ -58,25 +60,27 @@ class SimplexDynamics(nn.Module):
         self.U_x = CayleyLinear(x_dim, mlp_size, generator=g)
         self.mlp_to_mlp = CayleyLinear(mlp_size, mlp_size, generator=g)
         self.mlp_to_hidden = CayleyLinear(mlp_size, n_hidden, generator=g)
-        self.drop = nn.Dropout(dropout)
 
     def _act(self, z):
         return groupsort2(z) if self.activation == "GroupSort" else torch.relu(z)
 
-    def raw(self, h, x):
-        """The unprojected f~."""
+    def raw(self, h, x, *, train: bool = False):
+        """The unprojected f~; dropout acts only with ``train``."""
         z = self.hidden_to_mlp(h) + self.U_x(x)
-        z = self._act(self.drop(z))
+        z = self._act(F.dropout(z, self.dropout, train))
         z = self.mlp_to_mlp(z)
-        z = self._act(self.drop(z))
+        z = self._act(F.dropout(z, self.dropout, train))
         return self.mlp_to_hidden(z)
 
-    def eval_dot(self, h, x):
-        """The projected dynamics f(h, x)."""
-        f_tilde = self.raw(h, x)
+    def eval_dot(self, h, x, *, train: bool = False,
+                 scale_nominal: Optional[bool] = None):
+        """The projected dynamics f(h, x); ``scale_nominal`` overrides the
+        module's own flag."""
+        f_tilde = self.raw(h, x, train=train)
         lower, upper = barrier_bounds(h, self.alpha_1, self.sigma_1,
                                       self.alpha_2)
-        if self.scale_nominal:
+        sn = self.scale_nominal if scale_nominal is None else scale_nominal
+        if sn:
             f_tilde = (upper - lower) * torch.sigmoid(f_tilde) + lower
         return simplex_cone_project(lower, f_tilde, self.qp_iters)
 

@@ -4,13 +4,19 @@
     dh/dt = dynamics(h, x_feat), adaptive dopri5 from 0 to t_max
     output = h(t_max), the class probabilities
 
-There is one solve path, the JAX package's fused one: the dynamics are
-densified once per solve and the input injection xc = x_feat U^T + bU + b1
-is computed once, then every stage calls ``fused_rhs`` (kernel K1 on CUDA).
+The solve never applies dropout, in training mode or not (the JAX solve
+integrates ``eval_dot`` without ``train``).  The configuration picks the
+RHS, as in the JAX package, whose fused kernel is ReLU-only:
+
+  * ReLU dynamics take the fused path: the dynamics are densified once per
+    solve and the input injection xc = x_feat U^T + bU + b1 is computed
+    once, then every stage calls ``fused_rhs`` (kernel K1 on CUDA);
+  * GroupSort dynamics integrate ``dynamics.eval_dot`` (plain PyTorch).
 
 The solve is differentiable: xc keeps its graph into the backbone, and on
-CUDA the RHS backward is kernel K2 (scale_nominal off or on) and each
-conv's backward a K3 launch on Q^H.
+CUDA the fused RHS's backward is kernel K2 (scale_nominal off or on) and
+each conv's backward a K3 launch on Q^H; the GroupSort RHS's gradient is
+plain autograd.
 """
 from __future__ import annotations
 
@@ -56,19 +62,8 @@ class NeuralODEClassifier(nn.Module):
 
     def _fused_setup(self, feats):
         """Dense RHS weights and the input injection xc (B, mlp), once per
-        solve."""
-        dyn = self.dynamics
-        if dyn.activation != "ReLU":
-            raise ValueError(
-                f"the fused RHS implements ReLU dynamics only, got "
-                f"activation={dyn.activation!r}"
-            )
-        if dyn.training and dyn.dropout > 0:
-            raise ValueError(
-                "the fused RHS has no dropout: put the dynamics in eval mode "
-                "or set dropout=0"
-            )
-        dense = densify_dynamics_params(dyn)
+        solve (ReLU dynamics)."""
+        dense = densify_dynamics_params(self.dynamics)
         W1, b1 = dense["hidden_to_mlp"]
         U, bU = dense["U_x"]
         W2, b2 = dense["mlp_to_mlp"]
@@ -86,12 +81,16 @@ class NeuralODEClassifier(nn.Module):
         (a certifier integrates the field its certificate bounds)."""
         dyn = self.dynamics
         feats = self.features(x)
-        p, xc = self._fused_setup(feats)
         sn = dyn.scale_nominal if scale_nominal is None else scale_nominal
+        if dyn.activation == "ReLU":
+            p, xc = self._fused_setup(feats)
 
-        def f(t, h):
-            return fused_rhs(h, xc, p, dyn.alpha_1, dyn.sigma_1, dyn.alpha_2,
-                             sn, dyn.qp_iters)
+            def f(t, h):
+                return fused_rhs(h, xc, p, dyn.alpha_1, dyn.sigma_1,
+                                 dyn.alpha_2, sn, dyn.qp_iters)
+        else:
+            def f(t, h):
+                return dyn.eval_dot(h, feats, train=False, scale_nominal=sn)
 
         if ts is None:
             ts = [0.0, self.t_max]

@@ -7,9 +7,12 @@
 plain dense-DFT version; on a CUDA tensor it launches kernel K3
 (``csrc/fused_cayley_conv.cu``: forward transform, per-frequency mix as a
 batched GEMM with the images as rows, inverse transform; three CUDA launches
-counted as one apply).  The wrapper builds the twiddle table the transforms
-read (``twiddle_table``) and the frequency-major scratch X (2, F, B ci) and
-Y (2, F, B co).
+counted as one apply).  It takes every spatial size n: radix-2 transforms
+for n = 8, 16 and 32, direct ones for any other n, through device memory
+where a plane does not fit in one block's shared memory (n > 169).  The
+wrapper builds the twiddle table the transforms read (``twiddle_table``),
+the frequency-major scratch X (2, F, B ci) and Y (2, F, B co), and the
+scratch of the transforms through device memory where they need it.
 
 Backward on CUDA: the map is linear in x, and its VJP is the transposed
 frequency application, dx = apply(g, Q^H) with Q^H the conjugate transpose
@@ -33,17 +36,17 @@ from .cayley import apply_freq_matrices
 
 __all__ = ["fused_freq_apply", "twiddle_table", "is_radix"]
 
-MAX_N = 32  # the largest spatial size K3 takes
-
 
 @functools.cache
 def _lib():
     lib = load_library("fused_cayley_conv")
     fn = lib.fused_freq_apply_forward
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.fused_freq_apply_tmp_floats.argtypes = [ctypes.c_int] * 4
+    lib.fused_freq_apply_tmp_floats.restype = ctypes.c_longlong
     lib.fused_cayley_conv_error_string.argtypes = [ctypes.c_int]
     lib.fused_cayley_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -82,11 +85,11 @@ def _launch(x, Qr, Qi, adjoint=False):
     F, a, b = Qr.shape
     k, cout = (a, b) if adjoint else (b, a)
     if (n2 != n or F != n * (n // 2 + 1) or k != cin
-            or Qi.shape != Qr.shape or n > MAX_N):
+            or Qi.shape != Qr.shape):
         raise ValueError(
             f"fused_freq_apply: x {tuple(x.shape)} and Q {tuple(Qr.shape)} "
-            f"(adjoint={adjoint}) do not match (need square x with n <= "
-            f"{MAX_N} and F = n * (n // 2 + 1))"
+            f"(adjoint={adjoint}) do not match (need square x and "
+            f"F = n * (n // 2 + 1))"
         )
     for name, t in (("x", x), ("Qr", Qr), ("Qi", Qi)):
         if t.device != x.device or t.dtype != torch.float32:
@@ -105,11 +108,14 @@ def _launch(x, Qr, Qi, adjoint=False):
     yf = torch.empty((2, F, B * cout), device=dev, dtype=torch.float32)
     out = torch.empty((B, cout, n, n), device=dev, dtype=torch.float32)
     lib = _lib()
+    # the transforms through device memory (planes past shared memory)
+    n_tmp = lib.fused_freq_apply_tmp_floats(B, cin, cout, n)
+    tmp = torch.empty(n_tmp, device=dev, dtype=torch.float32) if n_tmp else None
     rc = lib.fused_freq_apply_forward(
         x.data_ptr(), Qr.data_ptr(), Qi.data_ptr(), a * b, so, sc,
         -1.0 if adjoint else 1.0, int(is_radix(n)),
-        _table_on(n, dev).data_ptr(),
-        xf.data_ptr(), yf.data_ptr(), out.data_ptr(), B, cin, cout, n,
+        _table_on(n, dev).data_ptr(), xf.data_ptr(), yf.data_ptr(),
+        None if tmp is None else tmp.data_ptr(), out.data_ptr(), B, cin, cout, n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -18,9 +18,10 @@ Certificate per image (clean-correct required first):
              grid-gap slack.
 
 The Lipschitz and witness sweeps evaluate the projected dynamics at every
-grid point: (images x cells) rows through ``ops.fused_rhs.fused_rhs``, which
-launches kernel K1 on a CUDA device and runs ``rhs_reference`` on the CPU,
-as the solve does.  CROWN's products are ``torch.matmul`` / ``einsum`` and
+grid point, (images x cells) rows at a time, through ``exact_field``: for
+ReLU dynamics ``ops.fused_rhs.fused_rhs``, which launches kernel K1 on a
+CUDA device and runs ``rhs_reference`` on the CPU, as the solve does; for
+GroupSort dynamics the dynamics' own ``eval_dot``.  CROWN's products are ``torch.matmul`` / ``einsum`` and
 the interval QP is plain elementwise PyTorch.
 
 Certificates are float32: every sweep runs with TF32 switched off, whatever
@@ -282,14 +283,16 @@ class Certifier:
 
     # -- blocks ---------------------------------------------------------------
 
-    def iter_blocks(self, superchunk: int = SUPERCHUNK):
+    def iter_blocks(self, superchunk: int = SUPERCHUNK,
+                    chunk: Optional[int] = None):
         """Yield (K, C, n) base-grid cell blocks and (K, C) validity masks on
         the device, every block of one shape (the last padded with invalid
-        cells).  Label-independent: the per-label column swap happens inside
-        the block through per-image permutations."""
+        cells), C = ``chunk`` (default: this certifier's).
+        Label-independent: the per-label column swap happens inside the
+        block through per-image permutations."""
         if self._grid_dev is None:
             self._grid_dev = torch.from_numpy(self.grid).to(self.device)
-        g, C = self._grid_dev, self.chunk
+        g, C = self._grid_dev, chunk or self.chunk
         block_cells = C * superchunk
         for i in range(0, len(g), block_cells):
             block = g[i:i + block_cells]
@@ -352,11 +355,8 @@ class Certifier:
         """Exact Vdot at the lattice points of one chunk for every image:
         (I, C) values and the (I, C, n) label-space cells."""
         I, (C, n) = perms.shape[0], eta.shape
-        dyn = self.model.dynamics
         eta_l = self.swap_columns(eta, perms)
-        f = fused_rhs(eta_l.reshape(I * C, n), xc_rows, p, self.alpha_1,
-                      self.sigma_1, self.alpha_2, self.scale_nominal,
-                      dyn.qp_iters).view(I, C, n)
+        f = self.exact_field(p, xc_rows, eta_l.reshape(I * C, n)).view(I, C, n)
         neg_inf = float("-inf")
         wrong = torch.where(onehot, neg_inf, eta_l)
         max_wrong = wrong.amax(-1, keepdim=True)
@@ -367,14 +367,29 @@ class Certifier:
         return -f_y + f_w, eta_l
 
     def rhs_rows(self, feats, C):
-        """Packed K1 weights and the input injection repeated per cell."""
-        W1, W2, W3 = self.Ws
-        b1, b2, b3 = self.bs
-        p = pack_rhs_params(W1, W2, W3, b2, b3)
-        xc = feats @ self.U.T + self.bU + b1  # (I, mlp)
-        I = xc.shape[0]
-        xc_rows = xc[:, None, :].expand(I, C, -1).reshape(I * C, -1).contiguous()
-        return p, xc_rows
+        """The exact field's inputs for I images x C cells each: for ReLU
+        dynamics the packed K1 weights and the injection xc = x U^T + bU + b1
+        repeated per cell; for GroupSort dynamics no weights (None) and the
+        features repeated per cell."""
+        if self.model.dynamics.activation == "ReLU":
+            W1, W2, W3 = self.Ws
+            b1, b2, b3 = self.bs
+            p = pack_rhs_params(W1, W2, W3, b2, b3)
+            rows = feats @ self.U.T + self.bU + b1  # (I, mlp)
+        else:
+            p, rows = None, feats
+        I = rows.shape[0]
+        return p, rows[:, None, :].expand(I, C, -1).reshape(I * C, -1).contiguous()
+
+    def exact_field(self, p, in_rows, h):
+        """The projected dynamics at the states h (R, n), with ``p`` and the
+        (R, ...) inputs of ``rhs_rows``: K1 for ReLU dynamics, the dynamics'
+        ``eval_dot`` for GroupSort, at this certifier's scale_nominal."""
+        dyn = self.model.dynamics
+        if p is None:
+            return dyn.eval_dot(h, in_rows, scale_nominal=self.scale_nominal)
+        return fused_rhs(h, in_rows, p, self.alpha_1, self.sigma_1,
+                         self.alpha_2, self.scale_nominal, dyn.qp_iters)
 
     def lips_block(self, p, xc_rows, labels, perms, etas, valids, worst):
         """One Lipschitz block; ``worst`` is the pair (with the grid-gap

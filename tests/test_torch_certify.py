@@ -186,6 +186,52 @@ def test_exact_witness_matches_jax_and_larger_T(models, certifiers, name):
     assert same.mean() >= 0.5
 
 
+@pytest.mark.parametrize("scale_nominal", [False, True])
+def test_groupsort_lipschitz_sweep_matches_jax(scale_nominal):
+    # the exact field of GroupSort dynamics is their eval_dot, as in the JAX
+    # package's Lipschitz chunk, not the ReLU field K1 computes
+    kw = dict(n_hidden=N, mlp_size=MLP, x_dim=X_DIM, dropout=0.0,
+              activation="GroupSort", alpha_1=100.0, alpha_2=20.0,
+              sigma_1=0.02)
+    jmodel = JaxClassifier(
+        backbone=JaxTinyMLP(out_dim=X_DIM, hidden=HIDDEN, mu=(0.5,),
+                            std=(0.25,)),
+        dynamics=JaxDynamics(cayley=True, **kw), n_classes=N,
+        max_steps=MAX_STEPS)
+    x = np.random.default_rng(3).uniform(size=(4, 1, 8, 8)).astype(np.float32)
+    params = jmodel.init(jax.random.PRNGKey(4), jnp.asarray(x))
+    tmodel = NeuralODEClassifier(
+        TinyMLPBackbone(64, out_dim=X_DIM, hidden=HIDDEN, mu=(0.5,),
+                        std=(0.25,)),
+        SimplexDynamics(**kw), max_steps=MAX_STEPS).eval()
+    params_from_numpy(tmodel, jax.tree_util.tree_map(np.asarray, params))
+    y = np.array(jnp.argmax(jmodel.predict(params, jnp.asarray(x)), -1))
+    ckw = dict(T=8, eps_input=EPS_INPUT, chunk=8, scale_nominal=scale_nominal)
+    jcert = JaxCertifier(jmodel, params, **ckw)
+    tcert = Certifier(tmodel, **ckw)
+    clean, (want_full, want_exact) = _jax_worst(jcert, x, y, "lipschitz")
+    before = tcertify.fused_rhs.launches
+    res = tcert.certify(x, y, method="lipschitz", early_exit=False)
+    assert tcertify.fused_rhs.launches == before
+    np.testing.assert_array_equal(res.clean, clean)
+    assert clean.all()
+    np.testing.assert_allclose(res.worst, want_full, atol=WORST_TOL)
+    np.testing.assert_allclose(res.worst_larger_T, want_exact, atol=WORST_TOL)
+    jres = jcert.certify(x, y, method="lipschitz", early_exit=False)
+    np.testing.assert_array_equal(res.certified, jres.certified)
+    np.testing.assert_array_equal(res.larger_T_certified,
+                                  jres.larger_T_certified)
+    # the exact field differs from the ReLU field of the same weights
+    p, rows = tcert.rhs_rows(tmodel.features(torch.from_numpy(x[:1])), 3)
+    assert p is None
+    h = torch.from_numpy(tcert.grid[:3])
+    relu = tcertify.fused_rhs(
+        h, (rows @ tcert.U.T + tcert.bU + tcert.bs[0]).contiguous(),
+        tcertify.pack_rhs_params(*tcert.Ws, *tcert.bs[1:]), 100.0, 0.02, 20.0,
+        scale_nominal)
+    assert not torch.allclose(tcert.exact_field(p, rows, h), relu, atol=1e-3)
+
+
 def test_scale_nominal_widens_lipschitz_kappa(certifiers):
     _, off = certifiers("plain")
     joff, _ = certifiers("plain")
@@ -350,8 +396,19 @@ def test_run_certify_streams_and_refuses_refinement(models, tmp_path):
     np.testing.assert_array_equal(res.certified, want.certified)
     np.testing.assert_array_equal(res.larger_T_certified,
                                   want.larger_T_certified)
-    with pytest.raises(NotImplementedError, match="refine"):
-        run_certify(tmodel, x, y, "crown", T=T, grid=grid, refine_rounds=1)
+    # refinement is not refused: it runs after the sweep, folds what it
+    # recovers into the verdicts and writes its audit file beside the log
+    rlog = tmp_path / "refine.jsonl"
+    base = run_certify(tmodel, x, y, "crown", T=T, eps=EPS_INPUT, chunk=8,
+                       grid=grid, stream_out=str(rlog))
+    refined = run_certify(tmodel, x, y, "crown", T=T, eps=EPS_INPUT, chunk=8,
+                          grid=grid, refine_rounds=1, stream_out=str(rlog))
+    assert (~base.certified | refined.certified).all()
+    audit = json.loads((tmp_path / "refine.jsonl.refine.json").read_text())
+    assert audit["refine_rounds"] == 1
+    assert audit["certified_idx"] == np.nonzero(refined.certified)[0].tolist()
+    assert [s["image"] for s in audit["stats"]] == \
+        np.nonzero(base.clean & ~base.certified)[0].tolist()
 
 
 def test_truncated_clean_solve_raises(models):

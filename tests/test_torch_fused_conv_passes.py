@@ -28,6 +28,9 @@ TOL = 1e-4
 # strided ones), then the MNIST KWLarge's
 FLAGSHIP = [(3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16), (256, 64, 2, 8)]
 MNIST = [(1, 32, 3, 28), (128, 32, 2, 14), (32, 64, 3, 14), (256, 64, 2, 7)]
+# spatial sizes past the radix path's 32: direct passes with several planes
+# a block (33, 48) and one plane a block (64)
+WIDE = [(4, 6, 3, 33), (8, 8, 3, 48), (16, 16, 3, 64)]
 
 
 def _bitrev(i, bits):
@@ -189,7 +192,7 @@ def _case(ci, co, k, n, B, seed):
     return x, Q
 
 
-@pytest.mark.parametrize("ci,co,k,n", FLAGSHIP + MNIST)
+@pytest.mark.parametrize("ci,co,k,n", FLAGSHIP + MNIST + WIDE)
 def test_k3_passes_match_pallas_interpret(ci, co, k, n):
     x, Q = _case(ci, co, k, n, 2, ci + n)
     want = np.asarray(jax_fused(jnp.asarray(x), jnp.asarray(Q), 2, True))
@@ -216,7 +219,7 @@ def test_k3_adjoint_passes_match_the_pallas_vjp(ci, co, k, n):
     np.testing.assert_allclose(got, np.asarray(want), atol=TOL)
 
 
-@pytest.mark.parametrize("n", [8, 16, 32, 7, 14, 28])
+@pytest.mark.parametrize("n", [8, 16, 32, 7, 14, 28, 33, 64])
 def test_twiddle_table_is_what_the_passes_read(n):
     tw = twiddle_table(n).astype(np.float64)
     if is_radix(n):

@@ -1,7 +1,8 @@
 """Port parity for the fused RHS (kernel K1's module): the plain version
 against the JAX padded reference and against the K1 Pallas kernel in
-interpret mode, the port's dynamics against flax, and the configurations the
-fused path must refuse.  The CUDA kernel is held against the plain version in
+interpret mode, the port's dynamics against flax, and the solve of the
+configurations the fused path does not take (GroupSort dynamics, training
+mode) against the JAX package's unfused solve.  The CUDA kernel is held against the plain version in
 test_torch_kernels_cuda.py."""
 import importlib
 
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from fiode_tpu.models.dynamics import SimplexDynamics as JaxDynamics
+from fiode_tpu.models.ivp import NeuralODEClassifier as JaxClassifier
 from fiode_tpu_torch.bridge import params_from_numpy
 from fiode_tpu_torch.models.dynamics import SimplexDynamics
 from fiode_tpu_torch.models.ivp import NeuralODEClassifier
@@ -122,20 +124,75 @@ def test_fused_setup_matches_eval_dot(scale_nominal):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
 
 
+def _classifier_pair(activation, dropout):
+    """A backbone-free classifier in both packages, same parameters."""
+    kw = dict(n_hidden=10, mlp_size=32, x_dim=4, dropout=dropout,
+              activation=activation, alpha_1=A1, alpha_2=A2, sigma_1=S1)
+    jmodel = JaxClassifier(backbone=None, dynamics=JaxDynamics(**kw),
+                           n_classes=10)
+    x = np.random.default_rng(5).normal(size=(7, 4)).astype(np.float32)
+    params = jmodel.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    tmodel = NeuralODEClassifier(None, SimplexDynamics(**kw))
+    params_from_numpy(tmodel, jax.tree_util.tree_map(np.asarray, params))
+    return jmodel, params, tmodel.eval(), x
+
+
+def _groupsort_solve_matches_jax(scale_nominal):
+    jmodel, params, tmodel, x = _classifier_pair("GroupSort", 0.0)
+    want = jax.jit(lambda p, x: jmodel.solve(
+        p, x, scale_nominal=scale_nominal, fused=False))(params, jnp.asarray(x))
+    before = fused_rhs.launches
+    with torch.no_grad():
+        got = tmodel.solve(torch.from_numpy(x), scale_nominal=scale_nominal)
+    assert fused_rhs.launches == before
+    np.testing.assert_allclose(got.ys[-1].numpy(), np.asarray(want.ys[-1]),
+                               atol=1e-3)
+    assert (got.nfe, got.n_accepted, got.n_rejected) == (
+        int(want.nfe), int(want.n_accepted), int(want.n_rejected))
+    # the gradient through the GroupSort solve is plain autograd
+    xt = torch.from_numpy(x).requires_grad_()
+    (dx,) = torch.autograd.grad(tmodel.solve(xt).ys[-1][:, 0].sum(), xt)
+    assert torch.isfinite(dx).all() and dx.abs().sum() > 0
+
+
 def test_fused_path_rejects_groupsort_dynamics():
-    model = NeuralODEClassifier(
-        None, SimplexDynamics(x_dim=4, activation="GroupSort"))
-    with pytest.raises(ValueError, match="ReLU"):
-        model.solve(torch.zeros(2, 4))
+    # GroupSort dynamics are not refused: the solve integrates eval_dot, as
+    # the JAX package's unfused solve does (its fused kernel is ReLU-only)
+    _groupsort_solve_matches_jax(False)
+
+
+def test_groupsort_solve_with_scale_nominal_matches_jax():
+    _groupsort_solve_matches_jax(True)
+
+
+def _training_solve_matches_eval(activation):
+    jmodel, params, tmodel, x = _classifier_pair(activation, 0.5)
+    want = jax.jit(lambda p, x: jmodel.solve(p, x, fused=False))(
+        params, jnp.asarray(x))
+    with torch.no_grad():
+        evaled = tmodel.eval().solve(torch.from_numpy(x))
+        trained = tmodel.train().solve(torch.from_numpy(x))
+    assert torch.equal(trained.ys, evaled.ys)
+    assert trained.nfe == evaled.nfe
+    np.testing.assert_allclose(trained.ys[-1].numpy(), np.asarray(want.ys[-1]),
+                               atol=1e-3)
+    assert trained.nfe == int(want.nfe)
+    # dropout acts only when the caller asks for it
+    h = torch.full((7, 10), 0.1)
+    xt = torch.from_numpy(x)
+    dyn = tmodel.dynamics
+    assert torch.equal(dyn.raw(h, xt), dyn.raw(h, xt, train=False))
+    assert not torch.equal(dyn.raw(h, xt, train=True), dyn.raw(h, xt))
 
 
 def test_fused_path_rejects_training_dropout():
-    model = NeuralODEClassifier(None, SimplexDynamics(x_dim=4, dropout=0.5))
-    model.train()
-    with pytest.raises(ValueError, match="dropout"):
-        model.solve(torch.zeros(2, 4))
-    model.eval()
-    assert model.solve(torch.zeros(2, 4)).ys.shape == (2, 2, 10)
+    # training mode is not refused: the solve never applies dropout, so a
+    # training-mode solve equals the eval-mode one and the JAX solve
+    _training_solve_matches_eval("ReLU")
+
+
+def test_groupsort_training_solve_equals_eval_solve():
+    _training_solve_matches_eval("GroupSort")
 
 
 def test_pack_rhs_params_keeps_true_width():

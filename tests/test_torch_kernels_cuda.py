@@ -219,6 +219,30 @@ def test_fused_freq_apply_kernel_matches_plain(cuda, ci, co, k, n, B):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("n", [33, 48, 64, 100, 170])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_fused_freq_apply_kernel_takes_n_beyond_32(cuda, n, adjoint):
+    # direct passes: several planes a block (33, 48), one (64, 100: the
+    # opt-in shared memory past 48 KB from n = 78), and through device
+    # memory (170); forward and transposed (Q^H through swapped strides)
+    ci, co, B = 16, 8, 64 if n <= 64 else 3
+    x, Qr, Qi = _conv_inputs(ci, co, 3, n, B, n, cuda)
+    Q = torch.complex(Qr, Qi)
+    if adjoint:
+        from fiode_tpu_torch.ops.fused_cayley_conv import _launch
+        g = torch.randn(B, co, n, n, generator=torch.Generator().manual_seed(n))
+        x = g.to(cuda)
+        got = _launch(x, Qr, Qi, adjoint=True)
+        want = apply_freq_matrices(x, Q.conj().transpose(1, 2).resolve_conj(),
+                                   impl="dft")
+    else:
+        before = fused_freq_apply.launches
+        got = fused_freq_apply(x, Qr, Qi)
+        assert fused_freq_apply.launches == before + 1
+        want = apply_freq_matrices(x, Q, impl="dft")
+    torch.testing.assert_close(got, want, atol=K3_TOL, rtol=0)
+
+
 @pytest.mark.parametrize("ci,co,k,n", [
     (3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16), (256, 64, 2, 8),
     (1, 32, 3, 28), (256, 64, 2, 7)])
