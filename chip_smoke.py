@@ -46,12 +46,27 @@ and timing both:
     package in float32 (the artifacts' TPU counts printed beside); one
     round's device breakdown.
 
+  * phase 15: Lyapunov certified training.  run_train on
+    configs/classification/cifar_train.yaml at full width (KWLarge, mlp
+    128, B 128, S 256: 32,768 Lyapunov rows a step) on the synthetic CIFAR
+    set for 2 of its 300 epochs, validating and checkpointing each, then
+    the test evaluation: the loss falls, every loss is finite, K3 launches
+    7 times a step (4 forward, 3 on Q^H); one Lyapunov step through the
+    kernels against the plain path from the same state and draws; two
+    steps of the ode objective (K1, and K2 with weight gradients once per
+    RHS evaluation) against the plain backward and bit-stable; a run
+    resumed from epoch 1 equal to the uninterrupted one; the best
+    checkpoint through entry.certify_model; a few steps of
+    mnist_train.yaml at full width (K3's direct passes); the step's host
+    time, device time by stage, idle share and peak memory.
+
 Phase 4 also holds K3 at a spatial size past the radix path's 32 (n = 64)
 and times it; phase 5 also checks that a solve in training mode equals the
 eval-mode solve.
 
 ``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
-certification path; it prints no result line.
+certification path, and ``--phases train`` phases 1, 2 and 15; neither
+prints a result line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -66,6 +81,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -496,11 +512,13 @@ def groupsort_branches(model, out: list):
 
 
 def plain_backward(rhs_ctx, g):
-    """_FusedRhsCuda.backward by the plain rhs_vjp_reference (no K2)."""
+    """_FusedRhsCuda.backward by the plain rhs_vjp_reference (no K2), with
+    the weight gradients where the weights need them."""
     from fiode_tpu_torch.ops.fused_rhs import RhsParams, rhs_vjp_reference
     h, xc, *w = rhs_ctx.saved_tensors
-    dh, dxc, _ = rhs_vjp_reference(h, xc, g, RhsParams(*w), *rhs_ctx.consts)
-    return (dh, dxc) + (None,) * 11
+    dh, dxc, dp = rhs_vjp_reference(h, xc, g, RhsParams(*w), *rhs_ctx.consts)
+    dw = tuple(dp) if any(rhs_ctx.needs_input_grad[2:7]) else (None,) * 5
+    return (dh, dxc, *dw) + (None,) * 6
 
 
 @contextlib.contextmanager
@@ -521,12 +539,15 @@ def plain_backwards():
 
 
 def plain_conv_backward(conv_ctx, g):
-    """_FusedFreqApplyCuda.backward in x by the plain dense-DFT VJP."""
-    x, Qr, Qi = conv_ctx.saved_tensors
+    """_FusedFreqApplyCuda.backward by the plain dense-DFT VJP, in x and Q
+    where they need it."""
+    need = conv_ctx.needs_input_grad[:3]
     with torch.enable_grad():
-        xq = x.detach().requires_grad_()
-        (dx,) = torch.autograd.grad(plain_freq_apply(xq, Qr, Qi), xq, g)
-    return dx, None, None
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip(conv_ctx.saved_tensors, need)]
+        got = iter(torch.autograd.grad(plain_freq_apply(*leaves),
+                                       [t for t in leaves if t.requires_grad], g))
+    return tuple(next(got) if n else None for n in need)
 
 
 def grad_solve_phase(model, dev) -> dict:
@@ -1220,10 +1241,363 @@ def certify_phases(dev) -> dict:
     return {"crown": crown, "lipschitz": lips, "refine": refine}
 
 
+# phase 15: Lyapunov certified training (configs/classification/*.yaml at
+# full width on the synthetic sets; the only cuts are epochs and data)
+TRAIN_EPOCHS = 2               # of cifar_train.yaml's 300
+TRAIN_MNIST_SIZE = 704         # synthetic MNIST: 634 train (9 steps), 70 val
+TRAIN_K3_PER_STEP = 7          # 4 forward, 3 on Q^H (layer 1's input needs no gradient)
+# kernel step against plain step, from the same state and draws: each
+# gradient within this share of its tensor's largest entry (the conv
+# transforms' round-off, and near-tied GroupSort pairs that take the other
+# branch), and each updated weight within this share of the learning rate
+# (an Adam update is at most about lr)
+TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-3, 0.05
+TRAIN_DIR = ROOT / "build" / "train_smoke"
+K3_KERNELS = ("rdft", "mix_kernel")  # the names of K3's three launches
+
+
+def _kernels_under(e) -> list:
+    """(name, ms) of every kernel launched by event ``e`` or its children."""
+    out = [(k.name, k.duration / 1e3) for k in getattr(e, "kernels", [])]
+    for c in e.cpu_children:
+        out += _kernels_under(c)
+    return out
+
+
+def _in_backward(e) -> bool:
+    p = e.cpu_parent
+    while p is not None:
+        if p.name.startswith("autograd::engine::evaluate_function"):
+            return True
+        p = p.cpu_parent
+    return False
+
+
+def _dev_ms(e) -> float:
+    us = getattr(e, "device_time_total", None)
+    return (us if us is not None else getattr(e, "cuda_time_total", 0)) / 1e3
+
+
+def train_step_breakdown(step) -> dict:
+    """One call of ``step`` under torch.profiler: wall ms, device-busy ms,
+    device events, and (device ms, kernels) by stage.  Forward
+    stages are the trainer's record_function ranges (train.*), with the
+    Cayley solves and K3 inside them listed again; the backward (autograd's
+    own thread) is split by autograd node: the conv backward into K3 on
+    Q^H and dQ (the dense-DFT VJP), the solves' backward, and the rest
+    (the eval_dot, jvp / loss and linear layers' backward)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    stages: dict = {}
+
+    def add(name, ks):
+        ms, n = stages.get(name, (0.0, 0))
+        stages[name] = (ms + sum(t for _, t in ks), n + len(ks))
+
+    def k3(ks, keep=True):
+        return [(k, t) for k, t in ks if any(x in k for x in K3_KERNELS) == keep]
+
+    busy, n_kernels = 0.0, 0
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            # the device-side spans of the train.* ranges are no kernels
+            if not (getattr(e, "is_user_annotation", False)
+                    or e.name.startswith("train.")):
+                busy += e.time_range.elapsed_us() / 1e3
+                n_kernels += 1
+            continue
+        if e.name.startswith("train."):
+            ks = _kernels_under(e)
+            add(e.name, ks)
+            if e.name == "train.backbone":
+                add("  of it K3 forward", k3(ks))
+        elif e.name == "aten::linalg_solve" and not _in_backward(e):
+            add("  of it cayley solves (forward)", _kernels_under(e))
+        elif e.name.startswith("autograd::engine::evaluate_function: ") \
+                and not _in_backward(e):
+            node = e.name.split(": ", 1)[1]
+            ks = _kernels_under(e)
+            if "FusedFreqApply" in node:
+                add("backward: K3 on Q^H", k3(ks))
+                add("backward: dQ (dense-DFT VJP)", k3(ks, keep=False))
+            elif "LinalgSolve" in node or "LinalgLu" in node:
+                add("backward: cayley solves", ks)
+            elif "FusedRhs" in node:
+                add("backward: K2", ks)
+            else:
+                add("backward: rest (eval_dot, jvp / loss, linears)", ks)
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1.0 - busy / wall,
+            "kernels": n_kernels, "stages": stages}
+
+
+def _snapshot(tr) -> dict:
+    import copy
+    return {"model": copy.deepcopy(tr.model.state_dict()),
+            "opt": copy.deepcopy(tr.opt.state_dict()), "count": tr.opt_count,
+            "gen": tr.gen.get_state()}
+
+
+def _restore(tr, snap) -> None:
+    import copy
+    tr.model.load_state_dict(snap["model"])
+    tr.opt.load_state_dict(copy.deepcopy(snap["opt"]))
+    tr.opt_count = snap["count"]
+    tr.gen.set_state(snap["gen"])
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _params(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _max_rel(a: dict, b: dict) -> tuple:
+    """(largest |a - b| / max|b| over the tensors, its name)."""
+    worst = max(((a[n] - b[n]).abs().max().item()
+                 / max(b[n].abs().max().item(), 1e-30), n) for n in b)
+    return worst
+
+
+def train_phase(dev) -> dict:
+    """[15 train] run_train on cifar_train.yaml at full width (KWLarge,
+    mlp 128, B 128, S 256) on the synthetic CIFAR set for TRAIN_EPOCHS
+    epochs (a); one Lyapunov step through the kernels against the plain
+    path (b); two steps of the ode objective: K2 with weight gradients,
+    against the plain backward, bit-stable (c); resume from epoch 1 (d);
+    the best checkpoint through entry.certify_model (e); a few steps of
+    mnist_train.yaml at full width, K3's direct passes (f); and the step's
+    times."""
+    import importlib.util
+    import json as _json
+    import shutil
+    from fiode_tpu_torch.entry import certify_model
+    from fiode_tpu_torch.experiment import build_trainer, run_train
+    from fiode_tpu_torch.utils.config import compose
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    nodata = f"++data_root={TRAIN_DIR / 'no-data'}"
+    cdir = str(ROOT / "configs" / "classification")
+    has_yaml = importlib.util.find_spec("yaml") is not None
+    cfg = compose("cifar_train.yaml", [nodata], config_dir=cdir)
+    m = cfg["module"]
+    B, S = cfg["batch_size"], m["h_sample_size"]
+    log(f"[15 train] PyYAML {'is' if has_yaml else 'is not'} installed here; "
+        f"configs read by the port's own reader | cifar_train.yaml: B={B} "
+        f"S={S} rows/step={B * S} mlp={m['dynamics']['mlp_size']} "
+        f"{m['init_fun']['param_map']['target']} {m['opt_name']} lr={m['lr']} "
+        f"| cut: {TRAIN_EPOCHS} of {m['max_epochs']} epochs, synthetic data")
+
+    # (a) run_train at full width
+    reset_counts()
+    t0 = time.perf_counter()
+    tr, test = run_train(cfg, run_dir=str(TRAIN_DIR / "a"), epochs=TRAIN_EPOCHS,
+                         device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    final = _params(tr.model)
+    losses = torch.stack(tr.losses).cpu()
+    steps = losses.numel()
+    recs = [_json.loads(l) for l in open(TRAIN_DIR / "a" / "metrics.jsonl")]
+    vals = [r for r in recs if "validation_error" in r and r["step"] >= 0]
+    n_eval = TRAIN_EPOCHS * -(-len(tr.ds.val_x) // tr.cfg.val_batch_size) \
+        + -(-len(tr.ds.test_x) // tr.cfg.val_batch_size)
+    first, last = losses[0, :8].mean().item(), losses[-1, -8:].mean().item()
+    log(f"[15a run_train] {steps} steps ({tr.steps_per_epoch}/epoch) + "
+        f"{len(vals)} validations + test in {run_s:.1f} s | loss first 8 "
+        f"{first:.5f} -> last 8 {last:.5f} | val_err "
+        f"{[round(v['validation_error'], 4) for v in vals]} test_err "
+        f"{test['validation_error']:.4f} val_nfe {[v['val_nfe'] for v in vals]} "
+        f"| launches {launches} (K3 want {TRAIN_K3_PER_STEP} x {steps} + 4 x "
+        f"{n_eval} solves)")
+    if not (torch.isfinite(losses).all() and all(
+            math.isfinite(v["validation_loss"]) for v in vals)):
+        raise RuntimeError("a training or validation loss is not finite")
+    if not last < first:
+        raise RuntimeError(f"the training loss did not fall: {first} -> {last}")
+    if launches["fused_freq_apply"] != TRAIN_K3_PER_STEP * steps + 4 * n_eval:
+        raise RuntimeError(f"K3 launches {launches}")
+    if launches["fused_rhs"] == 0 or launches["fused_rhs_backward"] != 0:
+        raise RuntimeError(f"K1 / K2 launches {launches}")
+    phase_launches = dict(launches)
+
+    # (b) one Lyapunov step, kernels against the plain path
+    x = tr._train_x[:B]
+    y = tr._train_y[:B]
+    mixer = tr._epoch_mixer(TRAIN_EPOCHS - 1)
+    sn = tr._phase_scale_nominal
+    lr = tr._lr(tr.opt_count)
+    snap = _snapshot(tr)
+    reset_counts()
+    loss_k, _ = tr._train_step(x, y, steps, mixer, 0.0, sn)
+    torch.cuda.synchronize()
+    step_launches = counts()
+    grads_k, params_k = _grads(tr.model), _params(tr.model)
+    _restore(tr, snap)
+    with plain_path():
+        loss_p, _ = tr._train_step(x, y, steps, mixer, 0.0, sn)
+    grads_p, params_p = _grads(tr.model), _params(tr.model)
+    g_err, g_name = _max_rel(grads_k, grads_p)
+    p_err = max((params_k[n] - params_p[n]).abs().max().item() for n in params_p)
+    log(f"[15b step] Lyapunov step kernel vs plain: loss {loss_k.item():.6f} / "
+        f"{loss_p.item():.6f} | max grad err {g_err:.3e} of its tensor's max "
+        f"({g_name}; tol {TRAIN_GRAD_TOL:g}) | max |d param| {p_err:.3e} "
+        f"(tol {TRAIN_PARAM_TOL:g} x lr {lr:.3e}) | launches per step "
+        f"{step_launches}")
+    if step_launches != {"fused_rhs": 0, "fused_rhs_backward": 0,
+                         "fused_freq_apply": TRAIN_K3_PER_STEP}:
+        raise RuntimeError(f"a Lyapunov step launched {step_launches}")
+    if not (abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+            and g_err <= TRAIN_GRAD_TOL and p_err <= TRAIN_PARAM_TOL * lr):
+        raise RuntimeError("the kernel step disagrees with the plain step")
+
+    # timing: seconds per Lyapunov step (host, best of several), its
+    # device time by stage, peak memory, validation seconds
+    def lya_step():
+        tr._train_step(x, y, steps, mixer, 0.0, sn)
+
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lya_step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lya_step()
+    # what the step itself allocates above the state it starts from
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    bd = train_step_breakdown(lya_step)
+    t0 = time.perf_counter()
+    tr.evaluate()
+    val_s = time.perf_counter() - t0
+    log(f"[15 time] Lyapunov step: {1e3 * min(secs):.2f} ms best of "
+        f"{len(secs)} (host clock; {[round(1e3 * s, 2) for s in secs]}) | "
+        f"{B * S / min(secs):,.0f} rows/s | profiled: wall "
+        f"{bd['wall_ms']:.2f} ms, device busy {bd['busy_ms']:.2f} ms in "
+        f"{bd['kernels']} device events, idle {bd['idle']:.2f} (against the "
+        f"best unprofiled step {1.0 - bd['busy_ms'] / (1e3 * min(secs)):.2f}) "
+        f"| peak {peak:.2f} GiB above the step's start | validation "
+        f"({len(tr.ds.val_x)} images) "
+        f"{val_s:.2f} s")
+    for name, (ms, n) in sorted(bd["stages"].items(), key=lambda kv: -kv[1][0]):
+        log(f"    {name:48s} {ms:8.3f} ms  {n:5d} kernels")
+
+    # (c) the ode objective: K2 with weight gradients
+    ocfg = compose("cifar_train.yaml", [nodata, "++module.objective=ode"],
+                   config_dir=cdir)
+    otr = build_trainer(ocfg, str(TRAIN_DIR / "ode"), device=dev)
+    otr.reset_optimizer(False)
+    ox, oy = otr._train_x[:B], otr._train_y[:B]
+    osn = otr._phase_scale_nominal
+    reset_counts()
+    loss = otr._ode_ce_loss(ox, oy, osn)
+    fwd = counts()
+    otr.model.zero_grad(set_to_none=True)
+    loss.backward(retain_graph=True)
+    torch.cuda.synchronize()
+    ode_launches = counts()
+    g_kernel = _grads(otr.model)
+    otr.model.zero_grad(set_to_none=True)
+    with plain_backwards():
+        loss.backward()
+    g_plain = _grads(otr.model)
+    og_err, og_name = _max_rel(g_kernel, g_plain)
+    k1, k2 = fwd["fused_rhs"], ode_launches["fused_rhs_backward"]
+    snap = _snapshot(otr)
+    runs, osecs = [], []
+    for _ in range(2):
+        _restore(otr, snap)
+        for i in range(2):  # two steps from the same state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            otr._train_step(ox, oy, i, otr._epoch_mixer(0), 0.0, osn)
+            torch.cuda.synchronize()
+            osecs.append(time.perf_counter() - t0)
+        runs.append(_params(otr.model))
+    bit = all(torch.equal(runs[0][n], runs[1][n]) for n in runs[0])
+    log(f"[15c ode] B={B}: loss {loss.item():.6f} | K1 {k1} (NFE) K2 {k2} per "
+        f"step | shared forward, kernel vs plain backward: max grad err "
+        f"{og_err:.3e} of its tensor's max ({og_name}; tol {GRAD_DX_TOL:g}) | "
+        f"two runs of 2 steps bit-identical: {bit} | ode step "
+        f"{1e3 * min(osecs):.1f} ms best of {len(osecs)} (host clock)")
+    if not (k1 > 0 and 0 < k2 <= k1
+            and ode_launches["fused_freq_apply"] == TRAIN_K3_PER_STEP):
+        raise RuntimeError(f"ode step launches {ode_launches} (forward {fwd})")
+    if not og_err <= GRAD_DX_TOL:
+        raise RuntimeError(f"the ode step's kernel backward disagrees: {og_err}")
+    if not bit:
+        raise RuntimeError("two identical ode steps gave different weights")
+    phase_launches["fused_rhs_backward"] += k2
+
+    # (d) resume from epoch 1 of the same configuration
+    run_train(cfg, run_dir=str(TRAIN_DIR / "d"), epochs=1, device=dev)
+    tr_d, _ = run_train(cfg, run_dir=str(TRAIN_DIR / "d"), epochs=TRAIN_EPOCHS,
+                        resume=True, device=dev)
+    resumed = _params(tr_d.model)
+    d_resume = max((resumed[n] - final[n]).abs().max().item() for n in final)
+    log(f"[15d resume] resumed from epoch 1 vs uninterrupted: max |d param| "
+        f"{d_resume:.3e} (gate: bit-equal)")
+    if d_resume != 0.0:
+        raise RuntimeError(f"the resumed run ended elsewhere: {d_resume}")
+
+    # (e) the best checkpoint through certify_model
+    best = _json.loads((tr.ckpt.dir / "best.json").read_text())
+    cm = certify_model(checkpoint=tr.ckpt.path("best"), device=dev)
+    xv = torch.from_numpy(tr.ds.val_x).to(dev)
+    with torch.no_grad():
+        pred = cm.solve(xv, scale_nominal=sn).ys[-1].argmax(-1).cpu().numpy()
+    err = float((pred != tr.ds.val_y).mean())
+    log(f"[15e certify_model] best (step {best['step']}) loaded: error at "
+        f"scale_nominal={sn} {err:.6f} vs the trainer's validation "
+        f"{best['validation_error']:.6f}")
+    if abs(err - best["validation_error"]) > 0.5 / len(pred):
+        raise RuntimeError("certify_model does not reproduce the trained model")
+
+    # (f) mnist_train.yaml at full width on a cut synthetic set
+    mcfg = compose("mnist_train.yaml", [nodata, f"++synthetic_size={TRAIN_MNIST_SIZE}"],
+                   config_dir=cdir)
+    reset_counts()
+    t0 = time.perf_counter()
+    mtr, mtest = run_train(mcfg, run_dir=str(TRAIN_DIR / "mnist"), epochs=1,
+                           device=dev)
+    torch.cuda.synchronize()
+    m_s = time.perf_counter() - t0
+    mlaunch = counts()
+    msteps = mtr.losses[0].numel()
+    m_eval = -(-len(mtr.ds.val_x) // mtr.cfg.val_batch_size) \
+        + -(-len(mtr.ds.test_x) // mtr.cfg.val_batch_size)
+    log(f"[15f mnist] B={mcfg['batch_size']} S={mcfg['module']['h_sample_size']} "
+        f"KWLargeMNIST (K3 at n = 28, 14, 7: direct passes), warmup optimizer: "
+        f"{msteps} steps in {m_s:.1f} s, losses {mtr.losses[0].cpu().numpy().round(4).tolist()} "
+        f"| test_err {mtest['validation_error']:.4f} | launches {mlaunch} | cut: "
+        f"1 of 200 epochs, {len(mtr.ds.train_x)} synthetic train images")
+    if not torch.isfinite(mtr.losses[0]).all():
+        raise RuntimeError("an MNIST training loss is not finite")
+    if mlaunch["fused_freq_apply"] != TRAIN_K3_PER_STEP * msteps + 4 * m_eval:
+        raise RuntimeError(f"MNIST K3 launches {mlaunch}")
+    for k in phase_launches:
+        phase_launches[k] += mlaunch[k]
+    seconds = time.perf_counter() - t_phase
+    log(f"[15 train] phase 15 in {seconds:.1f} s | launches {phase_launches}")
+    return {"launches": phase_launches, "step_ms": 1e3 * min(secs)}
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", choices=("all", "certify"), default="all")
-    only_certify = ap.parse_args().phases == "certify"
+    ap.add_argument("--phases", choices=("all", "certify", "train"),
+                    default="all")
+    phases = ap.parse_args().phases
+    only_certify, only_train = phases == "certify", phases == "train"
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on a GPU")
     if not (ROOT / "fiode_tpu_torch" / "csrc").is_dir():
@@ -1239,6 +1613,7 @@ def main() -> None:
     from fiode_tpu_torch.ops.fused_rhs import RhsParams, fused_rhs, rhs_reference
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # 1. device ---------------------------------------------------------------
     smi = subprocess.run(
@@ -1257,15 +1632,17 @@ def main() -> None:
     # K1 and K2 are compiled per pair of tile counts: the flagship's
     # (n = 10) and phase 3's wide state (n = 100); one nvcc each, together
     builds = [lambda: load_library("fused_cayley_conv"),
-              lambda: fused_rhs_module.build(N_CLASSES, MLP),
-              lambda: load_cpp_library("grid_enum")]
-    if not only_certify:
+              lambda: fused_rhs_module.build(N_CLASSES, MLP)]
+    if not only_train:
+        builds.append(lambda: load_cpp_library("grid_enum"))
+    if phases == "all":
         builds.append(lambda: fused_rhs_module.build(WIDE_N, MLP))
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
-    log(f"[2 build] K1 + K2 ({'one width' if only_certify else 'two widths'}) + K3 "
-        f"+ grid_enum (g++) built in {build_s:.1f} s into {BUILD_DIR}")
+    log(f"[2 build] K1 + K2 ({'two widths' if phases == 'all' else 'one width'}) + K3 "
+        f"{'' if only_train else '+ grid_enum (g++) '}built in {build_s:.1f} s "
+        f"into {BUILD_DIR}")
     # ptxas on every kernel; the main path's own (the flagship's K1, and its
     # K2 without weight gradients: every launch of phases 5, 9 and 10) may
     # spill a stray register, not a fragment
@@ -1290,10 +1667,10 @@ def main() -> None:
     if spilled:
         raise RuntimeError(f"kernels of the main path spill registers: {spilled}")
 
-    if only_certify:
-        certify_phases(dev)
+    if only_certify or only_train:
+        certify_phases(dev) if only_certify else train_phase(dev)
         log(smi)
-        log("partial run (--phases certify): no result line")
+        log(f"partial run (--phases {phases}): no result line")
         return
 
     model = flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev)
@@ -1567,6 +1944,10 @@ def main() -> None:
     # 11-13. certification on the trained checkpoint ------------------------------
     cert = certify_phases(dev)
     errs["fused_rhs"] = max(errs["fused_rhs"], cert["lipschitz"]["k1_block_err"])
+    torch.cuda.empty_cache()
+
+    # 15. Lyapunov certified training -----------------------------------------
+    train = train_phase(dev)
 
     by_phase = {name: {"5 forward solve": launches.get(name, 0),
                        "9 gradient through the solve": grad["launches"][name],
@@ -1574,7 +1955,8 @@ def main() -> None:
                        "10 autoattack": attack["launches"][name],
                        "12 certify crown": cert["crown"]["launches"][name],
                        "13 certify lipschitz": cert["lipschitz"]["launches"][name],
-                       "14 refine": cert["refine"]["launches"][name]}
+                       "14 refine": cert["refine"]["launches"][name],
+                       "15 train": train["launches"][name]}
                 for name in attack["launches"]}
     for name in ("fused_rhs", "fused_freq_apply"):  # the certification paths' kernels
         if min(by_phase[name].values()) == 0:
@@ -1605,6 +1987,7 @@ def main() -> None:
          "bound_by": max(("bytes", "operations"), key=kf.get),
          "library_ms": kf["fft"]},
     ]
+    log(f"[done] phases 1-15 in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """PyTorch / CUDA port of fiode_tpu's flagship forward solve, the
-gradients through it, the AutoAttack suite run on it, and certification
-(the decision-boundary grid, CROWN / IBP bounds, the interval QP and the
-``Certifier``).
+gradients through it, the AutoAttack suite run on it, certification (the
+decision-boundary grid, CROWN / IBP bounds, the interval QP, the
+``Certifier`` and branch-and-bound refinement) and Lyapunov certified
+training.
 
 Mirrors ``fiode_tpu`` module for module (``ops/``, ``models/``, ``ode/``,
-``attacks/``, ``verify/``, ``train/data.py``, ``experiment.py``).
+``attacks/``, ``verify/``, ``train/``, ``utils/``, ``experiment.py``).
 The JAX package is the reference; this package imports only torch and
 numpy.  On a CPU tensor every kernel wrapper runs its plain PyTorch
 version; on a CUDA tensor it launches the hand-written Hopper kernel built

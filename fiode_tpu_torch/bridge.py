@@ -15,6 +15,8 @@ by ``/`` (``backbone/CayleyConv_0/weight``), float32 arrays and nothing
 pickled: ``load_npz`` reads one into a model, ``save_npz`` writes a model's
 parameters under the same names.  ``tools/export_torch_checkpoint.py`` makes
 such a file from an orbax checkpoint of the JAX package.
+``params_to_numpy`` is the inverse of ``params_from_numpy``: a model's
+parameters as the flax-named tree of numpy arrays.
 """
 from __future__ import annotations
 
@@ -25,15 +27,15 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_numpy", "load_npz", "save_npz"]
+__all__ = ["params_from_numpy", "params_to_numpy", "load_npz", "save_npz"]
 
 # flax auto-named submodules -> the port's ModuleLists
 _LISTS = {"CayleyConv": "convs", "CayleyLinear": "linears",
-          "LipsLinear": "linears"}
+          "LipsConv": "convs", "LipsLinear": "linears"}
 # flax leaf names -> the port's parameter names
 _LEAVES = {"kernel": "weight"}
 # the port's layers whose flax counterpart calls its weight "kernel"
-_KERNEL_LAYERS = ("LipsLinear",)
+_KERNEL_LAYERS = ("LipsLinear", "LipsConv")
 
 
 def _port_name(path) -> str:
@@ -106,10 +108,19 @@ def _flax_name(model: nn.Module, name: str) -> str:
     return "/".join(out + [leaf])
 
 
+def _flat_numpy(model: nn.Module) -> dict:
+    return {_flax_name(model, name): p.detach().cpu().numpy()
+            for name, p in model.named_parameters()}
+
+
+def params_to_numpy(model: nn.Module) -> dict:
+    """``model``'s parameters as the JAX package's nested params tree of
+    float32 numpy arrays (the inverse of ``params_from_numpy``)."""
+    return _unflatten(_flat_numpy(model))
+
+
 def save_npz(model: nn.Module, path) -> None:
     """Write ``model``'s parameters to ``path`` as a flat ``.npz`` under their
     flax names, the file ``load_npz`` and the JAX package's params tree
     agree on."""
-    flat = {_flax_name(model, name): p.detach().cpu().numpy()
-            for name, p in model.named_parameters()}
-    np.savez(path, **flat)
+    np.savez(path, **_flat_numpy(model))

@@ -1,8 +1,11 @@
-"""Runners (counterpart of ``run_sample_grid``, ``run_certify`` and
-``run_autoattack`` in ``fiode_tpu/experiment.py``).
+"""Constructors and runners (counterpart of ``fiode_tpu/experiment.py``).
 
-Each takes a model and arrays (the JAX versions take a config and restore a
-checkpoint; here ``entry.certify_model(checkpoint=...)`` builds the model).
+``build_model``, ``build_trainer`` and ``run_train`` take the composed config
+dict their JAX twins take (``utils/config.compose``) and train on the card
+unless given ``device="cpu"``; the model's weights are drawn from the
+config's seed on the CPU, then moved.  The other runners take a model and
+arrays (the JAX versions take a config and restore a checkpoint; here
+``entry.certify_model(checkpoint=...)`` builds the model).
 
 ``run_sample_grid`` enumerates the decision-boundary grid and may save it;
 ``run_certify`` sweeps it with the ``Certifier`` for the CROWN or the
@@ -25,18 +28,169 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .attacks.autoattack import STANDARD, AutoAttackSuite
+from .models.backbones import make_backbone
+from .models.dynamics import SimplexDynamics
 from .models.ivp import NeuralODEClassifier
+from .train.data import load_dataset
+from .train.schedulers import (
+    CompositeSamplerScheduler,
+    ConstantScheduler,
+    LinearScheduler,
+    SwitchScheduler,
+)
+from .train.trainer import LyapunovTrainer, TrainConfig, frozen
 from .verify.certify import Certifier, CertifyResult
 from .verify.grid import enumerate_decision_boundary
 
-__all__ = ["BudgetedForward", "run_autoattack", "run_certify",
-           "run_sample_grid"]
+__all__ = ["BudgetedForward", "build_model", "build_trainer", "run_train",
+           "run_autoattack", "run_certify", "run_sample_grid"]
+
+
+def _ordered_callbacks(cfg: dict, key: str):
+    d = cfg.get(key, {}) or {}
+    return [d[k] for k in sorted(d)]
+
+
+def build_model(cfg: dict, device="cuda") -> NeuralODEClassifier:
+    """The classifier a composed config describes, weights drawn from its
+    seed on the CPU and moved to ``device``.  The port has the
+    UniformInitFun start, the default output and dopri5; another choice
+    raises."""
+    m, ds = cfg["module"], cfg["dataset"]
+    dyn_cfg = m["dynamics"]
+    pm = (m.get("init_fun") or {}).get("param_map") or {}
+    init_target = (m.get("init_fun") or {}).get("target", "UniformInitFun")
+    out_target = (m.get("output") or {}).get("target", "default")
+    solver = m.get("val_ode_solver", "dopri5")
+    if (init_target, out_target, solver) != ("UniformInitFun", "default", "dopri5"):
+        raise ValueError(f"the port has no init {init_target!r}, output "
+                         f"{out_target!r} or solver {solver!r} yet")
+    g = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    backbone = make_backbone(
+        pm.get("target", "TinyMLP"), out_dim=int(pm.get("out_dim", 128)),
+        act=pm.get("act", "GroupSort"), mu=tuple(ds["MU"]),
+        std=tuple(ds["STD"]), in_channels=int(ds["IN_CHANNEL"]),
+        img_size=int(ds["IMG_SIZE"][0]), generator=g)
+    dynamics = SimplexDynamics(
+        n_hidden=int(dyn_cfg.get("n_hidden", ds["N_CLASSES"])),
+        mlp_size=int(dyn_cfg["mlp_size"]), x_dim=int(dyn_cfg["x_dim"]),
+        activation=dyn_cfg["activation"], dropout=float(dyn_cfg["dropout"]),
+        alpha_1=float(dyn_cfg["alpha_1"]), alpha_2=float(dyn_cfg["alpha_2"]),
+        sigma_1=float(dyn_cfg["sigma_1"]),
+        scale_nominal=bool(dyn_cfg["scale_nominal"]),
+        cayley=bool(dyn_cfg["cayley"]), kappa=float(dyn_cfg["kappa"]),
+        kappa_length=int(dyn_cfg["kappa_length"]), generator=g)
+    model = NeuralODEClassifier(
+        backbone=backbone, dynamics=dynamics, t_max=float(m["t_max"]),
+        rtol=float(m.get("val_ode_tol", 1e-3)),
+        atol=float(m.get("val_ode_tol", 1e-3)),
+        max_steps=int(m.get("max_steps", 64)))
+    return model.to(device)
+
+
+def _build_scheduler(cfg: dict) -> Optional[CompositeSamplerScheduler]:
+    nodes = _ordered_callbacks(cfg, "_sch_callback_dict")
+    if not nodes:
+        return None
+    kinds = {
+        "LinearScheduler": lambda n: LinearScheduler(
+            rate=float(n.get("rate", 1.0)), bias=float(n.get("bias", 0.0)),
+            clamp=n.get("clamp", "min"),
+            clamp_val=float(n.get("clamp_val", 0.0)),
+            start=int(n.get("start", 0))),
+        "ConstantScheduler": lambda n: ConstantScheduler(
+            float(n.get("constant", 1.0))),
+        "SwitchScheduler": lambda n: SwitchScheduler(
+            float(n.get("start", 0.0)), float(n.get("end", 1.0)),
+            float(n.get("trigger", 1.0))),
+    }
+    schedulers = [kinds[n["target"]](n) for n in nodes]
+    weights = (cfg["module"].get("sampler_scheduler") or {}).get(
+        "scheduler_weights", [1.0] * len(schedulers))
+    return CompositeSamplerScheduler(schedulers, [float(w) for w in weights])
+
+
+def _load_cfg_dataset(cfg: dict):
+    return load_dataset(
+        cfg["dataset"]["name"], cfg.get("data_root", "data"),
+        seed=int(cfg.get("seed", 0)),
+        synthetic_size=int(cfg.get("synthetic_size", 4096)),
+        synthetic_hardness=float(cfg.get("synthetic_hardness", 0.0)))
+
+
+def build_trainer(cfg: dict, run_dir: Optional[str] = None,
+                  device="cuda") -> LyapunovTrainer:
+    """The trainer of a composed config (``run_data/<dataset>-<time>`` by
+    default)."""
+    m = cfg["module"]
+    ds = _load_cfg_dataset(cfg)
+    model = build_model(cfg, device)
+    sampler_names = tuple(
+        n["target"] for n in _ordered_callbacks(cfg, "_sampler_callback_dict")
+    ) or ("UniformSimplexSampling", "CorrectConeSampling")
+    lya = m.get("lya_cand") or {"target": "DecisionBoundary"}
+    tcfg = TrainConfig(
+        opt_name=m["opt_name"], lr=float(m["lr"]),
+        momentum=float(m.get("momentum", 0.9)),
+        weight_decay=float(m.get("weight_decay", 0.0)),
+        beta1=float(m.get("beta1", 0.9)), beta2=float(m.get("beta2", 0.999)),
+        scheduler_name=m.get("scheduler_name", "cos_anneal"),
+        decay_epochs=tuple(m.get("decay_epochs", (90, 120, 150))),
+        max_epochs=int(m["max_epochs"]), warmup=int(m.get("warmup", -1)),
+        fix_backbone=bool(m.get("fix_backbone", False)),
+        batch_size=int(cfg.get("batch_size", 128)),
+        val_batch_size=int(cfg.get("val_batch_size", 256)),
+        h_sample_size=int(m.get("h_sample_size", 128)),
+        h_dist_lim=float(m.get("h_dist_lim", 15.0)),
+        act=m.get("act", "relu"), lya_cand=lya["target"],
+        lya_log_mode=bool(lya.get("log_mode", False)),
+        sampler_names=sampler_names,
+        barrier_loss=bool(m.get("barrier_loss", False)),
+        relax_exp_stable=bool(m.get("relax_exp_stable", False)),
+        scale_l_eps=float(m.get("scaleLeps", 3.0)),
+        lips_train=bool(m.get("lips_train", False)),
+        lips_warmup=int(m.get("lips_warmup", 0)),
+        epoch_off_scale=int(m.get("epoch_off_scale", 10)),
+        train_ode=bool(m.get("train_ode", False)),
+        train_ode_epoch=int(m.get("train_ode_epoch", 100)),
+        objective=m.get("objective", {
+            "ODELearning": "ode", "ClassicalLearning": "classical",
+        }.get(m.get("target"), "lyapunov")),
+        adv_train=bool(m.get("adv_train", False)),
+        val_adv=bool(m.get("val_adv", False)),
+        eps=float(m.get("eps", 36 / 255)), norm=m.get("norm", "L2"),
+        seed=int(cfg.get("seed", 0)),
+    )
+    if run_dir is None:
+        stamp = time.strftime("%Y%m%d-%H%M%S")
+        run_dir = str(Path(cfg.get("savedir", "run_data"))
+                      / f"{cfg['dataset']['name']}-{stamp}")
+    return LyapunovTrainer(model, tcfg, ds, scheduler=_build_scheduler(cfg),
+                           run_dir=run_dir, device=device)
+
+
+def run_train(cfg: dict, run_dir: Optional[str] = None, epochs=None,
+              test_adv: bool = False, resume: bool = False, device="cuda"):
+    """Train, then evaluate on the test split (and AutoAttack it with
+    ``test_adv``); returns (trainer, test metrics).  The trained model is
+    ``trainer.model``; its best checkpoint ``trainer.ckpt.path("best")``."""
+    tr = build_trainer(cfg, run_dir, device)
+    tr.fit(epochs=epochs, resume=resume)
+    test = tr.evaluate(split="test",
+                       generator=torch.Generator(tr.device).manual_seed(1))
+    if test_adv:
+        test.update(tr.test_autoattack(
+            generator=torch.Generator(tr.device).manual_seed(2)))
+    tr.writer.log({f"test_{k}": v for k, v in test.items()}, step=-1)
+    tr.writer.console(f"test: {test}")
+    return tr, test
 
 
 def run_sample_grid(n: int = 10, T: int = 40,
@@ -195,29 +349,27 @@ def run_autoattack(model: NeuralODEClassifier, xs: torch.Tensor,
                             attacks_to_run=attacks, n_iter=n_iter,
                             square_queries=square_queries)
     generator = torch.Generator(device=xs.device).manual_seed(seed)
-    frozen = [p.requires_grad for p in model.parameters()]
     was_training = model.training
-    model.eval().requires_grad_(False)
+    model.eval()
     try:
-        # completion probe: clean images and an eps-ball corner of each
-        probe = xs[:min(64, len(xs))]
-        with torch.no_grad():
-            forward(torch.cat([
-                probe,
-                torch.clamp(probe + eps * torch.sign(probe - 0.5), 0.0, 1.0),
-            ]))
-        probe_attempts = forward.max_attempts
-        robust_idx, x_adv = [], []
-        t0 = time.perf_counter()
-        for i in range(0, len(xs), batch_size):
-            bx, by = xs[i:i + batch_size], ys[i:i + batch_size]
-            xa, robust = suite.run(bx, by, generator)
-            robust_idx += (i + torch.nonzero(robust)[:, 0]).tolist()
-            x_adv.append(xa)
-        elapsed = time.perf_counter() - t0
+        with frozen(model):
+            # completion probe: clean images and an eps-ball corner of each
+            probe = xs[:min(64, len(xs))]
+            with torch.no_grad():
+                forward(torch.cat([
+                    probe,
+                    torch.clamp(probe + eps * torch.sign(probe - 0.5), 0.0, 1.0),
+                ]))
+            probe_attempts = forward.max_attempts
+            robust_idx, x_adv = [], []
+            t0 = time.perf_counter()
+            for i in range(0, len(xs), batch_size):
+                bx, by = xs[i:i + batch_size], ys[i:i + batch_size]
+                xa, robust = suite.run(bx, by, generator)
+                robust_idx += (i + torch.nonzero(robust)[:, 0]).tolist()
+                x_adv.append(xa)
+            elapsed = time.perf_counter() - t0
     finally:
-        for p, flag in zip(model.parameters(), frozen):
-            p.requires_grad_(flag)
         model.train(was_training)
     n = len(xs)
     summary = {

@@ -1,7 +1,8 @@
 """Backbone feature extractors (counterpart of
-``fiode_tpu/models/backbones.py``): the Cayley KWLarge flagship and the
-small MLP used by the tests.  Both take NCHW images in [0, 1] and normalise
-inside the model."""
+``fiode_tpu/models/backbones.py``): the Cayley KWLarge flagship, the plain
+4C3F / 6C2F CNNs whose Lipschitz constant the trainer tracks, and the small
+MLP used by the tests.  All take NCHW images in [0, 1] and normalise inside
+the model; ``make_backbone`` builds one by its config name."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -9,9 +10,26 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import CayleyConv, CayleyLinear, GroupSort, LipsLinear, Normalize
+from .layers import (
+    CayleyConv,
+    CayleyLinear,
+    GroupSort,
+    LipsConv,
+    LipsLinear,
+    Normalize,
+)
 
-__all__ = ["KWLargeBackbone", "TinyMLPBackbone"]
+__all__ = ["KWLargeBackbone", "PlainCNNBackbone", "TinyMLPBackbone",
+           "make_backbone"]
+
+# (features, kernel, stride, padding) of each LipsConv, and the LipsLinear
+# widths after the flatten (the last one is out_dim)
+PLAIN_CNN = {
+    "4C3F": ([(32, 3, 1, 1), (32, 4, 2, 1), (64, 3, 1, 1), (64, 4, 2, 1)],
+             [512, 512]),
+    "6C2F": ([(32, 3, 1, 1), (32, 3, 1, 1), (32, 4, 2, 1),
+              (64, 3, 1, 1), (64, 3, 1, 1), (64, 4, 2, 1)], [512]),
+}
 
 
 def _act(name: str) -> nn.Module:
@@ -60,6 +78,43 @@ class KWLargeBackbone(nn.Module):
         return self.linears[2](x)
 
 
+class PlainCNNBackbone(nn.Module):
+    """4C3F / 6C2F CNNs of LipsConv and LipsLinear layers (``PLAIN_CNN``),
+    with ``act`` after every layer but the last."""
+
+    def __init__(self, arch: str = "4C3F", out_dim: int = 10,
+                 act: str = "ReLU", mu: Sequence[float] = (0.0,),
+                 std: Sequence[float] = (1.0,), in_channels: int = 3,
+                 img_size: int = 32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if arch not in PLAIN_CNN:
+            raise ValueError(f"unknown arch {arch!r}")
+        self.arch = arch
+        convs, widths = PLAIN_CNN[arch]
+        self.norm = Normalize(mu, std)
+        self.act = _act(act)
+        layers, c, hw = [], in_channels, img_size
+        for co, k, s, p in convs:
+            layers.append(LipsConv(c, co, k, s, p, generator=generator))
+            c, hw = co, (hw + 2 * p - k) // s + 1
+        self.convs = nn.ModuleList(layers)
+        dims = [c * hw * hw] + widths + [out_dim]
+        self.linears = nn.ModuleList([
+            LipsLinear(a, b, generator=generator)
+            for a, b in zip(dims[:-1], dims[1:])
+        ])
+
+    def forward(self, x):
+        x = self.norm(x)
+        for conv in self.convs:
+            x = self.act(conv(x))
+        x = x.reshape(x.shape[0], -1)
+        for lin in self.linears[:-1]:
+            x = self.act(lin(x))
+        return self.linears[-1](x)
+
+
 class TinyMLPBackbone(nn.Module):
     """Small flatten -> MLP feature map (tests and fast CPU experiments)."""
 
@@ -76,3 +131,29 @@ class TinyMLPBackbone(nn.Module):
     def forward(self, x):
         x = self.norm(x).reshape(x.shape[0], -1)
         return self.linears[1](torch.relu(self.linears[0](x)))
+
+
+def make_backbone(name: str, *, out_dim: int, act: str, mu, std,
+                  in_channels: int, img_size: int,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Optional[nn.Module]:
+    """The param_map registry of the JAX package's ``make_backbone``:
+    ORTHO_KWLarge_Concat, ORTHO_KWLargeMNIST_Concat (KWLarge at the input's
+    channels and size), CIFAR_4C3F, CIFAR_4C3F_nolips, CIFAR_6C2F, TinyMLP,
+    and Identity (no backbone: the dynamics see the flattened pixels)."""
+    kw = dict(mu=mu, std=std, generator=generator)
+    if name in ("ORTHO_KWLarge_Concat", "ORTHO_KWLargeMNIST_Concat"):
+        return KWLargeBackbone(out_dim=out_dim, act=act,
+                               in_channels=in_channels, img_size=img_size,
+                               **kw)
+    if name in ("CIFAR_4C3F", "CIFAR_4C3F_nolips", "CIFAR_6C2F"):
+        return PlainCNNBackbone("6C2F" if name == "CIFAR_6C2F" else "4C3F",
+                                out_dim=out_dim, act=act,
+                                in_channels=in_channels, img_size=img_size,
+                                **kw)
+    if name == "TinyMLP":
+        return TinyMLPBackbone(in_channels * img_size * img_size,
+                               out_dim=out_dim, **kw)
+    if name == "Identity":
+        return None
+    raise ValueError(f"unknown backbone {name!r}")

@@ -6,10 +6,14 @@
     scaling:  f~ <- (upper - lower) sigmoid(f~) + lower      [scale_nominal]
     project:  f = simplex_cone_project(lower, f~)
 
-The four layers are CayleyLinear (the JAX package's ``cayley=True``, the
-only value its configs use).  Dropout acts inside the raw MLP only when the
-caller passes ``train=True``, as in the JAX package, never because of the
-module's training mode.
+The four layers are CayleyLinear (``cayley=True``, what every config uses)
+or LipsLinear.  Dropout acts inside the raw MLP only when the caller passes
+``train=True``, as in the JAX package, never because of the module's
+training mode; its mask is drawn from the caller's ``torch.Generator`` (on
+the activations' device), kept with probability 1 - dropout and scaled by
+1 / (1 - dropout), as flax's ``nn.Dropout`` does.  ``kappa`` and
+``kappa_length`` are the Lyapunov training's decay rate and its annealing
+length in steps; the RHS does not read them.
 """
 from __future__ import annotations
 
@@ -17,11 +21,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from ..ops.cayley import groupsort2
 from ..ops.simplex_qp import simplex_cone_project
-from .layers import CayleyLinear
+from .layers import CayleyLinear, LipsLinear
 
 __all__ = ["SimplexDynamics", "barrier_bounds", "densify_dynamics_params"]
 
@@ -42,6 +45,8 @@ class SimplexDynamics(nn.Module):
                  dropout: float = 0.5, alpha_1: float = 100.0,
                  alpha_2: float = 20.0, sigma_1: float = 0.02,
                  scale_nominal: bool = False, qp_iters: int = 30,
+                 cayley: bool = True, kappa: float = 2.0,
+                 kappa_length: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if activation not in ("ReLU", "GroupSort"):
@@ -55,28 +60,41 @@ class SimplexDynamics(nn.Module):
         self.sigma_1 = sigma_1
         self.scale_nominal = scale_nominal
         self.qp_iters = qp_iters
-        g = generator
-        self.hidden_to_mlp = CayleyLinear(n_hidden, mlp_size, generator=g)
-        self.U_x = CayleyLinear(x_dim, mlp_size, generator=g)
-        self.mlp_to_mlp = CayleyLinear(mlp_size, mlp_size, generator=g)
-        self.mlp_to_hidden = CayleyLinear(mlp_size, n_hidden, generator=g)
+        self.cayley = cayley
+        self.kappa = kappa
+        self.kappa_length = kappa_length
+        lin, g = (CayleyLinear if cayley else LipsLinear), generator
+        self.hidden_to_mlp = lin(n_hidden, mlp_size, generator=g)
+        self.U_x = lin(x_dim, mlp_size, generator=g)
+        self.mlp_to_mlp = lin(mlp_size, mlp_size, generator=g)
+        self.mlp_to_hidden = lin(mlp_size, n_hidden, generator=g)
 
     def _act(self, z):
         return groupsort2(z) if self.activation == "GroupSort" else torch.relu(z)
 
-    def raw(self, h, x, *, train: bool = False):
-        """The unprojected f~; dropout acts only with ``train``."""
+    def _drop(self, z, train: bool, generator: Optional[torch.Generator]):
+        if not train or self.dropout == 0.0:
+            return z
+        keep = 1.0 - self.dropout
+        mask = torch.rand(z.shape, generator=generator, device=z.device) < keep
+        return torch.where(mask, z / keep, torch.zeros((), device=z.device))
+
+    def raw(self, h, x, *, train: bool = False,
+            generator: Optional[torch.Generator] = None):
+        """The unprojected f~; dropout acts only with ``train``, its masks
+        drawn from ``generator``."""
         z = self.hidden_to_mlp(h) + self.U_x(x)
-        z = self._act(F.dropout(z, self.dropout, train))
+        z = self._act(self._drop(z, train, generator))
         z = self.mlp_to_mlp(z)
-        z = self._act(F.dropout(z, self.dropout, train))
+        z = self._act(self._drop(z, train, generator))
         return self.mlp_to_hidden(z)
 
     def eval_dot(self, h, x, *, train: bool = False,
+                 generator: Optional[torch.Generator] = None,
                  scale_nominal: Optional[bool] = None):
         """The projected dynamics f(h, x); ``scale_nominal`` overrides the
         module's own flag."""
-        f_tilde = self.raw(h, x, train=train)
+        f_tilde = self.raw(h, x, train=train, generator=generator)
         lower, upper = barrier_bounds(h, self.alpha_1, self.sigma_1,
                                       self.alpha_2)
         sn = self.scale_nominal if scale_nominal is None else scale_nominal
@@ -91,6 +109,7 @@ class SimplexDynamics(nn.Module):
 def densify_dynamics_params(
         dyn: SimplexDynamics) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     """Each layer as a dense (kernel (out, in), bias (out,)) pair, the
-    Cayley weights baked to their orthogonal matrices."""
+    Cayley weights baked to their orthogonal matrices (a LipsLinear's
+    kernel is its weight)."""
     return {name: (getattr(dyn, name).kernel(), getattr(dyn, name).bias)
             for name in LAYERS}

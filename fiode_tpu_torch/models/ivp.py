@@ -58,6 +58,22 @@ class NeuralODEClassifier(nn.Module):
         """h(t_max) is the class-probability vector (the "default" output)."""
         return h
 
+    # -- the dynamics as a pure RHS ------------------------------------------
+
+    def eval_dot(self, h, x_feat, *, train: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 scale_nominal: Optional[bool] = None):
+        """f(h, x_feat) in plain PyTorch: with ``train`` the dropout masks
+        are drawn from ``generator`` (no kernel takes a mask)."""
+        return self.dynamics.eval_dot(h, x_feat, train=train,
+                                      generator=generator,
+                                      scale_nominal=scale_nominal)
+
+    def raw_dot(self, h, x_feat, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """The unprojected f~(h, x_feat)."""
+        return self.dynamics.raw(h, x_feat, train=train, generator=generator)
+
     # -- solve ---------------------------------------------------------------
 
     def _fused_setup(self, feats):
@@ -100,3 +116,10 @@ class NeuralODEClassifier(nn.Module):
     def predict(self, x):
         """Class probabilities at t_max."""
         return self.output_fn(self.solve(x).ys[-1])
+
+    def trajectory(self, x, n_points: int = 100, *,
+                   scale_nominal: Optional[bool] = None):
+        """The outputs at ``n_points`` evenly spaced times in [0, t_max],
+        (n_points, B, n)."""
+        ts = torch.linspace(0.0, self.t_max, n_points)
+        return self.output_fn(self.solve(x, ts, scale_nominal=scale_nominal).ys)

@@ -1,5 +1,6 @@
 """Layers (counterpart of ``fiode_tpu/models/layers.py``): Normalize,
-GroupSort, space_to_depth, CayleyLinear, CayleyConv and LipsLinear.
+GroupSort, space_to_depth, CayleyLinear, CayleyConv, LipsLinear and
+LipsConv.
 
 Weights keep the JAX layouts: (out, in) for linears, (co, ci, k, k) for
 convs, NCHW activations.  Initialisers follow flax's variance scaling
@@ -13,6 +14,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops.cayley import cayley_conv_kernel, cayley_linear_kernel, groupsort2
 from ..ops.fused_cayley_conv import fused_freq_apply
@@ -24,6 +26,7 @@ __all__ = [
     "CayleyLinear",
     "CayleyConv",
     "LipsLinear",
+    "LipsConv",
 ]
 
 # flax's truncated-normal variance scaling divides the std by the std of a
@@ -146,5 +149,30 @@ class LipsLinear(nn.Module):
         )
         self.bias = nn.Parameter(torch.zeros(out_features))
 
+    def kernel(self) -> torch.Tensor:
+        """The (out, in) matrix, the weight itself."""
+        return self.weight
+
     def forward(self, x):
         return x @ self.weight.T + self.bias
+
+
+class LipsConv(nn.Module):
+    """Plain NCHW cross-correlation with zero padding (spectral norm tracked
+    elsewhere); He-normal weights, std sqrt(2 / (k * k * features))."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        k = kernel_size
+        w = torch.empty((features, in_channels, k, k))
+        nn.init.normal_(w, 0.0, math.sqrt(2.0 / (k * k * features)),
+                        generator=generator)
+        self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)

@@ -1,1 +1,1 @@
-"""Data (and, in a later slice, training) for the port."""
+"""Data, samplers, the Lyapunov loss and the trainer."""

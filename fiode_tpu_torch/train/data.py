@@ -1,5 +1,5 @@
 """Dataset pipeline: MNIST / FashionMNIST / CIFAR-10 / CIFAR-3 (counterpart
-of the numpy parts of ``fiode_tpu/train/data.py``; numpy only).
+of ``fiode_tpu/train/data.py``; the readers are numpy only).
 
   * readers for the standard on-disk formats (MNIST idx / idx.gz, CIFAR-10
     python pickle batches or binary batches) under ``data_root``;
@@ -12,8 +12,9 @@ of the numpy parts of ``fiode_tpu/train/data.py``; numpy only).
     ``Normalize``), so attacks and certification act in [0, 1] pixel space.
 
 Images are NCHW float32 in [0, 1], held in host memory as numpy arrays; the
-callers move what they need to the device.  Augmentation belongs to the
-training slice and is not here.
+callers move what they need to the device.  ``augment_batch`` is the
+training's random crop and flip, on the device, a transform of its base
+draws (crop offsets and flip bits) as the samplers are.
 """
 from __future__ import annotations
 
@@ -25,8 +26,10 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+import torch
 
-__all__ = ["Dataset", "load_dataset", "check_data_root", "DATASET_INFO"]
+__all__ = ["Dataset", "load_dataset", "check_data_root", "DATASET_INFO",
+           "augment_batch", "augment_draws"]
 
 DATASET_INFO = {
     # name: (channels, size, n_classes, mu, std)
@@ -289,3 +292,34 @@ def check_data_root(name: str, data_root: str = "data") -> dict:
         np.ascontiguousarray(ds.test_y)).hexdigest()
     report["ok"] = not report["errors"]
     return report
+
+
+AUG_PAD = 4
+
+
+def augment_draws(B: int, generator: Optional[torch.Generator] = None,
+                  device=None) -> tuple:
+    """augment_batch's base draws: crop offsets (B, 2) in [0, 2 AUG_PAD]
+    and flip bits (B,), from ``generator``."""
+    off = torch.randint(0, 2 * AUG_PAD + 1, (B, 2), generator=generator,
+                        device=device)
+    flip = torch.rand((B,), generator=generator, device=device) < 0.5
+    return off, flip
+
+
+def augment_batch(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  draws: Optional[tuple] = None) -> torch.Tensor:
+    """Random crop (zero padding 4) and horizontal flip of each image of an
+    NCHW batch, with ``draws`` (offsets, flips) or ones drawn from
+    ``generator``."""
+    B, C, H, W = x.shape
+    off, flip = draws if draws is not None else augment_draws(
+        B, generator, x.device)
+    off = off.to(x.device)
+    xp = torch.nn.functional.pad(x, (AUG_PAD,) * 4)
+    rows = off[:, 0:1, None] + torch.arange(H, device=x.device)[None, :, None]
+    cols = off[:, 1:2, None] + torch.arange(W, device=x.device)[None, None, :]
+    b = torch.arange(B, device=x.device)[:, None, None]
+    cropped = xp.permute(0, 2, 3, 1)[b, rows, cols].permute(0, 3, 1, 2)
+    return torch.where(flip.to(x.device)[:, None, None, None],
+                       cropped.flip(-1), cropped)

@@ -145,7 +145,7 @@ def test_certify_model_loads_the_checkpoint(restored):
 def _assert_imports_leave_jax_out(imports: str):
     code = (
         f"import sys\n{imports}\n"
-        "bad = [m for m in ('jax', 'flax', 'orbax', 'fiode_tpu') "
+        "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'fiode_tpu', 'yaml') "
         "if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -161,7 +161,12 @@ def test_import_leaves_jax_out():
         "fiode_tpu_torch.ops.fused_cayley_conv, fiode_tpu_torch.attacks, "
         "fiode_tpu_torch.experiment, fiode_tpu_torch.verify.certify, "
         "fiode_tpu_torch.verify.grid, fiode_tpu_torch.verify.crown, "
-        "fiode_tpu_torch.verify.ibp_qp, fiode_tpu_torch.train.data")
+        "fiode_tpu_torch.verify.ibp_qp, fiode_tpu_torch.train.data, "
+        "fiode_tpu_torch.train.trainer, fiode_tpu_torch.train.lyapunov, "
+        "fiode_tpu_torch.train.samplers, fiode_tpu_torch.train.schedulers, "
+        "fiode_tpu_torch.train.lips, fiode_tpu_torch.ops.power_iteration, "
+        "fiode_tpu_torch.utils.config, fiode_tpu_torch.utils.checkpoint, "
+        "fiode_tpu_torch.utils.logging, fiode_tpu_torch.models.backbones")
 
 
 def test_chip_smoke_imports_leave_jax_out():

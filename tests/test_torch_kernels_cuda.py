@@ -8,6 +8,8 @@ without one; on a GPU machine run them with
 
 (``--noconftest``: the suite's conftest.py sets up JAX).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -367,3 +369,94 @@ def test_cpu_wrappers_take_the_plain_versions():
         fused_freq_apply(x, Qr, Qi).numpy(),
         apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft").numpy())
     assert fused_freq_apply.launches == before
+
+
+def _train_state(model, opt):
+    import copy
+    return copy.deepcopy(model.state_dict()), copy.deepcopy(opt.state_dict())
+
+
+def test_k2_weight_gradients_under_adam_are_bit_stable(cuda):
+    """The ode objective's path: K1 forward, K2 with weight gradients in the
+    backward, two Adam steps; repeated from the same state, the weights are
+    bit-identical (K2 sums its slots in a fixed order, no atomics)."""
+    from fiode_tpu_torch.models.dynamics import SimplexDynamics
+    from fiode_tpu_torch.models.ivp import NeuralODEClassifier
+    g = torch.Generator().manual_seed(0)
+    model = NeuralODEClassifier(None, SimplexDynamics(
+        n_hidden=10, mlp_size=128, x_dim=10, scale_nominal=True,
+        generator=g)).to(cuda)
+    x = torch.randn(256, 10, generator=g).to(cuda)
+    y = torch.randint(0, 10, (256,), generator=g).to(cuda)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    state = _train_state(model, opt)
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(state[0])
+        opt.load_state_dict(state[1])
+        before = fused_rhs_vjp.launches
+        for _ in range(2):
+            p = model.solve(x).ys[-1]
+            loss = -torch.log(torch.take_along_dim(p, y[:, None], 1)).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        assert fused_rhs_vjp.launches - before > 0
+        assert model.dynamics.mlp_to_mlp.weight.grad.abs().max() > 0
+        runs.append([t.detach().clone() for t in model.parameters()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_lyapunov_step_through_kernels_matches_plain(cuda):
+    """One Lyapunov train step of cifar_train.yaml's model (KWLarge, mlp 128)
+    at B = 16, S = 32: K3 and K3 on Q^H against the plain dense DFT, from
+    the same weights, optimizer state and draws.  Each gradient within 1e-3
+    of its tensor's largest entry; each updated weight within 5% of the
+    learning rate where its gradient is at least a tenth of the tensor's
+    largest (a fresh Adam's first update lr g / (|g| + 1e-8) turns the
+    round-off of a gradient near zero into a visible share of lr), and
+    within 2 lr everywhere."""
+    from pathlib import Path
+    from unittest import mock
+
+    from fiode_tpu_torch.experiment import build_trainer
+    from fiode_tpu_torch.models import layers
+    from fiode_tpu_torch.utils.config import compose
+
+    def plain_apply(x, Qr, Qi):
+        return apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft")
+
+    cfg = compose("cifar_train.yaml",
+                  ["++batch_size=16", "++module.h_sample_size=32",
+                   "++synthetic_size=64", "++data_root=/nonexistent"],
+                  config_dir=str(Path(__file__).resolve().parents[1]
+                                 / "configs" / "classification"))
+    tr = build_trainer(cfg, run_dir=str(Path(__file__).resolve().parents[1]
+                                        / "build" / "test_lyapunov_step"),
+                       device=cuda)
+    tr.reset_optimizer(False)
+    x, y = tr._train_x[:16], tr._train_y[:16]
+    mixer = tr._epoch_mixer(12)  # both samplers own slots
+    state = _train_state(tr.model, tr.opt) + (tr.gen.get_state(),)
+    out = []
+    for plain in (False, True):
+        tr.model.load_state_dict(state[0])
+        tr.opt.load_state_dict(state[1])
+        tr.gen.set_state(state[2])
+        before = fused_freq_apply.launches
+        ctx = (mock.patch.object(layers, "fused_freq_apply", plain_apply)
+               if plain else contextlib.nullcontext())
+        with ctx:
+            tr._train_step(x, y, 0, mixer, 0.0, True)
+        assert fused_freq_apply.launches - before == (0 if plain else 7)
+        out.append(({n: p.grad.clone() for n, p in tr.model.named_parameters()},
+                    {n: p.detach().clone() for n, p in tr.model.named_parameters()}))
+    (gk, pk), (gp, pp) = out
+    lr = 5e-3
+    for n in gp:
+        scale = gp[n].abs().max().item()
+        assert (gk[n] - gp[n]).abs().max().item() <= 1e-3 * max(scale, 1e-30), n
+        sized = gp[n].abs() >= 0.1 * scale
+        assert (pk[n] - pp[n])[sized].abs().max().item() <= 0.05 * lr, n
+        assert (pk[n] - pp[n]).abs().max().item() <= 2 * lr, n
