@@ -64,9 +64,20 @@ Phase 4 also holds K3 at a spatial size past the radix path's 32 (n = 64)
 and times it; phase 5 also checks that a solve in training mode equals the
 eval-mode solve.
 
+  * phase 16: the Segway safe controller (run_data/segway/segway_f32.npz,
+    trained by the JAX package in float32; tools/export_segway_reference.py):
+    the port certifies it at r = 0.01 and r = 0.0025 and simulates its five
+    fixed starts, held to the JAX package's answers in segway_f32.json
+    (16a); the port trains from seed 0 at examples/segway_workflow.py's
+    protocol (300 LQR-fit and 300 barrier iterations with Linf PGD, eps
+    0.02), then certifies at r = 0.01 and simulates (16b); the times per
+    iteration, of one barrier step on the device, of certification and of
+    the simulation (16c).  No TPU kernel is on this path: K1-K3 launch 0
+    times, and the kernels line does not count the phase.
+
 ``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
-certification path, and ``--phases train`` phases 1, 2 and 15; neither
-prints a result line.
+certification path, ``--phases train`` phases 1, 2 and 15, and ``--phases
+control`` phases 1 and 16 (no build); none prints a result line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -1592,9 +1603,229 @@ def train_phase(dev) -> dict:
     log(f"[15 train] phase 15 in {seconds:.1f} s | launches {phase_launches}")
     return {"launches": phase_launches, "step_ms": 1e3 * min(secs)}
 
+# phase 16: the Segway safe controller at examples/segway_workflow.py's
+# protocol.  No TPU kernel is on this path (a 3 -> 32 -> 1 ReLU controller,
+# an analytic plant, CROWN in plain PyTorch, the port's dopri5): K1-K3 must
+# launch 0 times.  16a holds the port to the JAX package's float32 answers
+# on the committed controller (tools/export_segway_reference.py)
+SEGWAY_DIR = ROOT / "run_data" / "segway"
+SEGWAY_RADII = ("0.01", "0.0025")  # not certified / certified in float32
+SEGWAY_BAND_TOL, SEGWAY_VDOT_TOL, SEGWAY_SIM_TOL = 1e-6, 1e-4, 1e-4
+SEGWAY_EDGE_ULPS = 2  # V this close to a band edge may fall either side
+SEGWAY_LOSS_DROP = 0.01  # best barrier loss below this share of the first
+
+
+def near_edge_cells(lya, edges, r, sizes) -> list:
+    """The grid states whose V lies within SEGWAY_EDGE_ULPS float32 ulp of a
+    band edge, as (state, V) pairs: two correct float32 evaluations of V
+    may keep or drop them."""
+    import numpy as np
+    from fiode_tpu_torch.control.certify_segway import grid_slabs
+    near = []
+    for slab in grid_slabs(sizes, r, lya.P.device):
+        v = lya(slab)[:, 0]
+        for e in edges:
+            e32 = np.float32(e)
+            hit = (v - float(e32)).abs() <= SEGWAY_EDGE_ULPS * float(np.spacing(e32))
+            near += list(zip(slab[hit].tolist(), v[hit].tolist()))
+    return near
+
+
+def control_step_profile(step) -> dict:
+    """One call of ``step`` under torch.profiler: wall ms, device-busy ms,
+    the number of kernels and the costliest ones."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        # the device-side spans of record_function ranges (the optimizer's
+        # own) are no kernels
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("Optimizer.")):
+            ms, n = by_name.get(e.name[:60], (0.0, 0))
+            by_name[e.name[:60]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in rows)
+    return {"wall_ms": wall, "busy_ms": busy, "kernels": sum(n for *_, n in rows),
+            "top": rows[:6], "idle": 1.0 - busy / wall}
+
+
+def segway_phase(dev, smi: str) -> dict:
+    """[16 control] 16a: the port certifies the committed float32 reference
+    controller at r = 0.01 and r = 0.0025 and simulates its five fixed
+    starts, held to segway_f32.json; 16b: the port trains from seed 0 at the
+    full protocol (300 LQR-fit iterations, 300 barrier iterations with the
+    7-step Linf PGD at eps 0.02 over the r = 0.02 grid's 607,500 states),
+    then certifies at r = 0.01 and simulates; 16c: the times."""
+    import numpy as np
+    from fiode_tpu_torch.control import (SegwayTrainConfig, certify_segway,
+                                         load_segway, train_segway)
+    from fiode_tpu_torch.control import systems as systems_module
+    from fiode_tpu_torch.control.lyapunov_ctrl import LyaQuadratic
+    from fiode_tpu_torch.control.samplers import grid_uniform_3d
+    from fiode_tpu_torch.control.systems import Segway
+    import importlib
+    train_module = importlib.import_module("fiode_tpu_torch.control.train_segway")
+    t_phase = time.perf_counter()
+    ref = json.loads((SEGWAY_DIR / "segway_f32.json").read_text())
+    sizes = (float(math.pi / 12), 1.5, 1.5)
+    reset_counts()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) parity on the committed controller
+    model = load_segway(SEGWAY_DIR / "segway_f32.npz", dev)
+    certify_segway(model=model, r=0.1, simulate_trajectories=False, verbose=False,
+                   device=dev)  # warm-up: cuBLAS and the allocator
+    cert_times = {}
+    for r in SEGWAY_RADII:
+        want = ref["certify"][r]
+        got, secs = timed(lambda: certify_segway(
+            model=model, r=float(r), simulate_trajectories=False, verbose=False,
+            device=dev))
+        cert_times[r] = (secs, got.n_cells)
+        near = []
+        if got.n_cells != want["n_cells"]:
+            near = near_edge_cells(LyaQuadratic(model["P"], torch.zeros(1, 3, device=dev)),
+                                   (got.level_lb, got.level_ub), float(r), sizes)
+        band_err = max(abs(got.level_lb - want["level_lb"]),
+                       abs(got.level_ub - want["level_ub"]))
+        log(f"[16a parity] r={r}: cells {got.n_cells} (JAX float32 {want['n_cells']}; "
+            f"grid states within {SEGWAY_EDGE_ULPS} ulp of a band edge: "
+            f"{len(near) if near else 'not needed'}) | band [{got.level_lb:.8f}, "
+            f"{got.level_ub:.8f}] (|d| {band_err:.2e}, tol {SEGWAY_BAND_TOL:g}) | ub_max "
+            f"{got.ub_max:+.7f} (JAX {want['ub_max']:+.7f}) | exact_vdot_max "
+            f"{got.exact_vdot_max:+.7f} (JAX {want['exact_vdot_max']:+.7f}) | certified "
+            f"{got.certified} (JAX {want['certified']}) | {secs:.3f} s")
+        for x, v in near[:20]:
+            log(f"    near a band edge: x={x} V={v!r}")
+        if abs(got.n_cells - want["n_cells"]) > len(near):
+            raise RuntimeError(f"r={r}: {got.n_cells} cells against {want['n_cells']}, "
+                               f"more than the {len(near)} states at a band edge")
+        if not (band_err <= SEGWAY_BAND_TOL
+                and abs(got.ub_max - want["ub_max"]) <= SEGWAY_VDOT_TOL
+                and abs(got.exact_vdot_max - want["exact_vdot_max"]) <= SEGWAY_VDOT_TOL
+                and got.certified == want["certified"]):
+            raise RuntimeError(f"r={r}: the port's certificate disagrees with the "
+                               f"JAX package's float32 answers: {got} vs {want}")
+    if [ref["certify"][r]["certified"] for r in SEGWAY_RADII] != [False, True]:
+        raise RuntimeError("segway_f32.json no longer holds the two verdicts")
+
+    sim = ref["simulate"]
+    sols = []
+
+    def spy_odeint(*a, **k):
+        sols.append(real_odeint(*a, **k))
+        return sols[-1]
+
+    real_odeint = systems_module.odeint
+    with mock.patch.object(systems_module, "odeint", spy_odeint):
+        (xs, _), sim_s = timed(lambda: Segway().simulate(
+            torch.tensor(sim["x0"], device=dev), model["ctrl"], np.linspace(*sim["ts"]),
+            rtol=sim["rtol"], atol=sim["atol"]))
+    sol = sols[-1]
+    end_err = float((xs[-1].cpu() - torch.tensor(sim["endpoint"])).abs().max())
+    log(f"[16a parity] simulate {len(sim['x0'])} starts to t={sim['ts'][1]:g}: "
+        f"endpoint max|d| {end_err:.2e} (tol {SEGWAY_SIM_TOL:g}) | steps "
+        f"{sol.n_accepted}+{sol.n_rejected} rejected, NFE {sol.nfe} (JAX "
+        f"{sim['n_accepted']}+{sim['n_rejected']}, NFE {sim['nfe']}) | {sim_s:.3f} s")
+    if not end_err <= SEGWAY_SIM_TOL:
+        raise RuntimeError(f"the simulated endpoints disagree with JAX's: {end_err}")
+
+    # (b) the workload: train from seed 0 at the full protocol
+    cfg = SegwayTrainConfig(adv_train=True, fit_lqr_iters=300, barrier_iters=300,
+                            margin=0.01)
+    fit, bar = [], []
+
+    def spy(record, fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            record.append((time.perf_counter(), out.detach()))
+            return out
+        return wrapped
+
+    with mock.patch.object(train_module, "_fit_loss", spy(fit, train_module._fit_loss)), \
+            mock.patch.object(train_module, "_barrier_loss",
+                              spy(bar, train_module._barrier_loss)):
+        res, train_s = timed(lambda: train_segway(cfg, verbose=False, device=dev))
+    fit_l = torch.stack([l for _, l in fit]).cpu()
+    bar_l = torch.stack([l for _, l in bar]).cpu()
+    fit_it = (fit[-1][0] - fit[0][0]) / (len(fit) - 1)
+    bar_it = (bar[-1][0] - bar[0][0]) / (len(bar) - 1)
+    log(f"[16b train] seed {cfg.seed}: {len(fit)} LQR-fit + {len(bar)} barrier "
+        f"iterations in {train_s:.2f} s | fit loss {fit_l[0]:.5f} -> {fit_l[-1]:.5f} | "
+        f"barrier loss first {bar_l[0]:.3f} -> best {res['best_loss']:.5f} (JAX float32 "
+        f"CPU: {ref['first_barrier_loss']} -> {ref['best_loss']:.5f})")
+    if not (torch.isfinite(fit_l).all() and torch.isfinite(bar_l).all()):
+        raise RuntimeError("a Segway training loss is not finite")
+    if not res["best_loss"] < SEGWAY_LOSS_DROP * float(bar_l[0]):
+        raise RuntimeError(f"the best barrier loss {res['best_loss']} is not below "
+                           f"{SEGWAY_LOSS_DROP} of the first, {float(bar_l[0])}")
+    sols.clear()
+    with mock.patch.object(systems_module, "odeint", spy_odeint):
+        mine, mine_s = timed(lambda: certify_segway(model=res, r=0.01, verbose=False,
+                                                    device=dev))
+    want = ref["certify"]["0.01"]
+    log(f"[16b certify] r=0.01: cells {mine.n_cells} ub_max {mine.ub_max:+.5f} "
+        f"exact_vdot_max {mine.exact_vdot_max:+.5f} certified {mine.certified} | "
+        f"trajectory drift {mine.traj_max_level_drift} | JAX float32 on its own "
+        f"controller: ub_max {want['ub_max']:+.5f} certified {want['certified']} | "
+        f"{mine_s:.2f} s with the simulation ({sols[-1].nfe if sols else 0} NFE)")
+    if not mine.exact_vdot_max < 0:
+        raise RuntimeError(f"the port-trained controller has exact Vdot >= 0 in "
+                           f"the band: {mine.exact_vdot_max}")
+
+    # (c) times: one barrier step under the profiler, from the trained state
+    ctrl = res["ctrl"]
+    P = torch.nn.Parameter(res["P"].clone())
+    opt = train_module._barrier_adam(ctrl, P, cfg)
+    grid = torch.from_numpy(grid_uniform_3d(np.asarray(sizes, np.float32),
+                                            np.full(3, cfg.grid_r))[0]).to(dev)
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def barrier_step():
+        with torch.no_grad():
+            mask = train_module._band_mask(P, grid, cfg)
+        eta = train_module._adversarial(ctrl, P, grid, mask, cfg, gen)
+        loss = train_module._barrier_loss(ctrl, P, eta, mask, cfg)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.item()
+
+    barrier_step()
+    prof = control_step_profile(barrier_step)
+    for r, (secs, n) in cert_times.items():
+        log(f"[16c times] certify r={r}: {secs:.3f} s, {n / secs:,.0f} cells/s | {smi}")
+    log(f"[16c times] LQR fit {1e3 * fit_it:.3f} ms/iteration, barrier "
+        f"{1e3 * bar_it:.3f} ms/iteration (host clock, {len(grid):,} grid states) | {smi}")
+    log(f"[16c times] one barrier step: wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['busy_ms']:.3f} ms, idle {prof['idle']:.3f}, {prof['kernels']} kernels; "
+        f"top {[(k, round(ms, 3), c) for k, ms, c in prof['top']]} | {smi}")
+    log(f"[16c times] simulate: {sim_s:.3f} s, {sol.n_accepted + sol.n_rejected} steps, "
+        f"NFE {sol.nfe} | {smi}")
+    launches = counts()
+    if any(launches.values()):
+        raise RuntimeError(f"a TPU kernel's port was launched on the Segway path: {launches}")
+    log(f"[16 control] phase 16 in {time.perf_counter() - t_phase:.1f} s | launches "
+        f"{launches} (no TPU kernel is on this path)")
+    return {"launches": launches}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", choices=("all", "certify", "train"),
+    ap.add_argument("--phases", choices=("all", "certify", "train", "control"),
                     default="all")
     phases = ap.parse_args().phases
     only_certify, only_train = phases == "certify", phases == "train"
@@ -1626,6 +1857,12 @@ def main() -> None:
         f"cuda {torch.version.cuda} | matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
+
+    if phases == "control":  # no kernel on this path: nothing to build
+        segway_phase(dev, smi)
+        log(smi)
+        log("partial run (--phases control): no result line")
+        return
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1948,6 +2185,10 @@ def main() -> None:
 
     # 15. Lyapunov certified training -----------------------------------------
     train = train_phase(dev)
+    torch.cuda.empty_cache()
+
+    # 16. the Segway safe controller (no TPU kernel on its path) ---------------
+    segway_phase(dev, smi)
 
     by_phase = {name: {"5 forward solve": launches.get(name, 0),
                        "9 gradient through the solve": grad["launches"][name],
@@ -1987,7 +2228,7 @@ def main() -> None:
          "bound_by": max(("bytes", "operations"), key=kf.get),
          "library_ms": kf["fft"]},
     ]
-    log(f"[done] phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -17,6 +17,11 @@ parameters under the same names.  ``tools/export_torch_checkpoint.py`` makes
 such a file from an orbax checkpoint of the JAX package.
 ``params_to_numpy`` is the inverse of ``params_from_numpy``: a model's
 parameters as the flax-named tree of numpy arrays.
+
+The Segway controller crosses the same way: ``segway_from_numpy`` takes the
+JAX package's trained controller (``{"ctrl": {"Dense_0": {"kernel",
+"bias"}, "Dense_1": ...}, "P": ...}``, flax kernels (in, out)) to an
+``NNController`` and P on a device, ``segway_to_numpy`` back.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_numpy", "params_to_numpy", "load_npz", "save_npz"]
+__all__ = ["params_from_numpy", "params_to_numpy", "load_npz", "save_npz",
+           "segway_from_numpy", "segway_to_numpy"]
 
 # flax auto-named submodules -> the port's ModuleLists
 _LISTS = {"CayleyConv": "convs", "CayleyLinear": "linears",
@@ -124,3 +130,33 @@ def save_npz(model: nn.Module, path) -> None:
     flax names, the file ``load_npz`` and the JAX package's params tree
     agree on."""
     np.savez(path, **_flat_numpy(model))
+
+
+def segway_from_numpy(tree: Mapping[str, Any], device="cuda"):
+    """(NNController, P) on ``device`` from the JAX package's Segway
+    controller tree; the widths are read from the kernels."""
+    from .control.controllers import NNController
+
+    dense = tree["ctrl"]
+    k0, k1 = (np.asarray(dense[f"Dense_{i}"]["kernel"], np.float32) for i in (0, 1))
+    ctrl = NNController(k0.shape[0], k1.shape[1], k0.shape[1])
+    with torch.no_grad():
+        for i, k in enumerate((k0, k1)):
+            layer = getattr(ctrl, f"Dense_{i}")
+            layer.weight.copy_(torch.from_numpy(k.T.copy()))
+            layer.bias.copy_(torch.from_numpy(
+                np.array(dense[f"Dense_{i}"]["bias"], np.float32)))
+    P = torch.as_tensor(np.array(tree["P"], np.float32), device=device)
+    return ctrl.to(device), P
+
+
+def segway_to_numpy(ctrl: nn.Module, P: torch.Tensor) -> dict:
+    """The JAX package's Segway controller tree ``{"ctrl": ..., "P": ...}``
+    of float32 numpy arrays (kernels in flax's (in, out) layout)."""
+    dense = {}
+    for i in (0, 1):
+        layer = getattr(ctrl, f"Dense_{i}")
+        dense[f"Dense_{i}"] = {
+            "kernel": layer.weight.detach().cpu().numpy().T.copy(),
+            "bias": layer.bias.detach().cpu().numpy()}
+    return {"ctrl": dense, "P": P.detach().cpu().numpy()}
