@@ -22,10 +22,14 @@ and timing both:
   * phases 7-10: gradients through the solve of the certified configuration
     (ReLU dynamics, scale_nominal off, t_max 0.1, max_steps 8) and of the
     flagship (scale_nominal on), and the AutoAttack standard suite on the
-    certified configuration (apgd-ce, apgd-t, fab-t, square; 512 images,
-    L2 eps 0.141, 100 iterations, 5000 Square queries): K2 (scale_nominal
-    off and on), K3 on Q^H as the conv backward, and K1 and K3 in every
-    attack forward;
+    trained checkpoint (run_data/certified_full/ckpt/best_torch.npz) at the
+    protocol of autoattack_full_standard_512_tmax01.json (apgd-ce, apgd-t,
+    fab-t, square; the 512 synthetic test images, L2 eps 0.141, 100
+    iterations, 5000 Square queries, t_max 0.1, max_steps 8), held to the
+    certificate: an adversarial validated on a certified image (all but
+    the 35 open_images of refine_accounting.json) fails the run: K2
+    (scale_nominal off and on), K3 on Q^H as the conv backward, and K1 and
+    K3 in every attack forward;
   * phases 11-13: certification on the trained checkpoint
     (run_data/certified_full/ckpt/best_torch.npz) and the synthetic test
     set (seed 0, 512 images) over the whole n = 10, T = 40 grid
@@ -75,9 +79,27 @@ eval-mode solve.
     the simulation (16c).  No TPU kernel is on this path: K1-K3 launch 0
     times, and the kernels line does not count the phase.
 
+  * phase 17: the rest of the ODE and model layer.  17a: the flagship at
+    B = 32768 with every adaptive method (dopri5, dopri8, bosh3, fehlberg2,
+    adaptive_heun) and every fixed-grid one (euler, midpoint, rk4, the
+    three Adams forms; step 0.1) through the kernels and the plain path:
+    endpoints within 1e-3, step counts equal or apart only where the error
+    ratio of both lies within RATIO_ROUNDING of 1.  17b: d(mean CE)/dx by
+    the continuous adjoint (K1 then K2 in the augmented RHS) against the
+    plain adjoint, for the trained certify configuration and the flagship
+    at t_max 0.1, B = 512, with phase 9's rule for GroupSort flips; the
+    cosine to the discrete gradient; the flagship at t_max 1 printed only
+    (its backward solve cannot reconstruct y: the y(0) error printed).
+    17c: the cached twin of best_torch.npz against the model at B = 32768:
+    predictions within 1e-6, 4 K3 launches a forward, no Cayley solve in
+    its profiled backbone forward (the model's shows them).  17d:
+    ConvBlockDynamics(32), basic and bottleneck, on (512, 3, 32, 32), rk4
+    to t = 0.5 on the card against the CPU.
+
 ``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
-certification path, ``--phases train`` phases 1, 2 and 15, and ``--phases
-control`` phases 1 and 16 (no build); none prints a result line.
+certification path, ``--phases train`` phases 1, 2 and 15, ``--phases
+control`` phases 1 and 16 (no build), ``--phases attack`` phases 1, 2 and
+10, and ``--phases ode`` phases 1, 2 and 17; none prints a result line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -341,14 +363,23 @@ def plain_freq_apply(x, Qr, Qi):
     return apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft")
 
 
+def plain_rhs_vjp(h, xc, g, p, *consts, weight_grads=True):
+    """fused_rhs_vjp by its plain version (no K2)."""
+    from fiode_tpu_torch.ops.fused_rhs import rhs_vjp_reference
+    dh, dxc, dp = rhs_vjp_reference(h, xc, g, p, *consts)
+    return dh, dxc, dp if weight_grads else None
+
+
 @contextlib.contextmanager
 def plain_path():
     """Run solves with K1 and K3 replaced by their plain versions; their
-    backward is then autograd through the plain versions (no K2)."""
+    backward is then autograd through the plain versions (no K2), and the
+    adjoint's augmented RHS takes the plain versions of K1 and K2."""
     from fiode_tpu_torch.models import ivp, layers
     from fiode_tpu_torch.ops.fused_rhs import rhs_reference
     before = counts()
     with mock.patch.object(ivp, "fused_rhs", rhs_reference), \
+            mock.patch.object(ivp, "fused_rhs_vjp", plain_rhs_vjp), \
             mock.patch.object(layers, "fused_freq_apply", plain_freq_apply):
         yield
     if counts() != before:
@@ -688,15 +719,32 @@ def flagship_grad_phase(model, dev) -> dict:
     return {"launches": launches}
 
 
-def attack_phase(model, dev, n_iter=ATTACK_ITERS,
+def attack_phase(dev, n_iter=ATTACK_ITERS,
                  square_queries=SQUARE_QUERIES) -> dict:
-    """[10 attack] run_autoattack with the standard suite, then APGD-CE
-    alone on the kernel path and on the plain path."""
+    """[10 attack] run_autoattack with the standard suite on the trained
+    checkpoint (best_torch.npz at the artifact's t_max 0.1, max_steps 8) and
+    the 512 synthetic test images, held to the
+    certificate: a validated adversarial on a certified image (every image
+    but the refinement's open ones) fails the run.  Then APGD-CE alone on
+    the kernel path and on the plain path."""
     from fiode_tpu_torch.attacks.apgd import apgd_ce
+    from fiode_tpu_torch.entry import certify_model
     from fiode_tpu_torch.experiment import BudgetedForward, run_autoattack
-    x = torch.rand(ATTACK_IMAGES, 3, 32, 32, generator=gen(70)).to(dev)
-    with torch.no_grad():
-        y = model.predict(x).argmax(-1)
+    from fiode_tpu_torch.train.data import load_dataset
+    model = certify_model(t_max=T_MAX, max_steps=MAX_STEPS, device=dev,
+                          checkpoint=CERT_DIR / "ckpt" / "best_torch.npz")
+    model.requires_grad_(False)
+    ds = load_dataset("CIFAR10", str(ROOT / "data"))
+    if not ds.synthetic or len(ds.test_x) != ATTACK_IMAGES:
+        raise RuntimeError("phase 10 runs on the 512-image synthetic test set")
+    x = torch.from_numpy(ds.test_x).to(dev)
+    y = torch.from_numpy(ds.test_y).to(dev, torch.long)
+    accounting = json.loads((CERT_DIR / "refine_accounting.json").read_text())
+    open_images = set(accounting["open_images"])
+    certified = torch.tensor([i not in open_images for i in range(ATTACK_IMAGES)],
+                             device=dev)
+    artifact = json.loads((CERT_DIR / "autoattack_full_standard_512_tmax01.json")
+                          .read_text())
     reset_counts()
     summary, x_adv = run_autoattack(
         model, x, y, eps=ATTACK_EPS, norm="L2", n_iter=n_iter,
@@ -707,16 +755,25 @@ def attack_phase(model, dev, n_iter=ATTACK_ITERS,
     robust[summary["robust_idx"]] = True
     dist = torch.linalg.norm((x_adv - x).reshape(ATTACK_IMAGES, -1), dim=-1)
     with torch.no_grad():
-        pred = model.predict(x_adv).argmax(-1)
+        out = model.predict(x_adv)
+    pred = out.argmax(-1)
+    true = out.gather(-1, y[:, None])[:, 0]
+    margin = true - out.scatter(-1, y[:, None], -math.inf).amax(-1)
     for name, sec in summary["attack_seconds"].items():
         log(f"[10 attack] {name}: {sec:.2f} s, {ATTACK_IMAGES / sec:.2f} images/s")
-    log(f"[10 attack] {summary['attacks']} n_iter={n_iter} square_queries="
-        f"{square_queries} eps={ATTACK_EPS} on {ATTACK_IMAGES} images: robust "
-        f"{len(summary['robust_idx'])}/{ATTACK_IMAGES} in {summary['seconds']:.1f} s "
+    log(f"[10 attack] best_torch.npz t_max={model.t_max}: {summary['attacks']} "
+        f"n_iter={n_iter} square_queries={square_queries} eps={ATTACK_EPS} on "
+        f"synthetic test images 0-{ATTACK_IMAGES - 1}: robust "
+        f"{len(summary['robust_idx'])}/{ATTACK_IMAGES} (JAX artifact "
+        f"{len(artifact['robust_idx'])}/{artifact['n_images']}; certified "
+        f"{int(certified.sum())}) in {summary['seconds']:.1f} s "
         f"({summary['images_per_sec']:.3f} images/s) | max attempts "
         f"{summary['max_attempts']} of max_steps {model.max_steps} (probe "
         f"{summary['probe_attempts']}), {summary['forwards']} forwards | "
         f"max L2 {dist.max().item():.5f} | launches {launches}")
+    for i in (~robust).nonzero()[:, 0].tolist():
+        log(f"[10 attack] adversarial on image {i} ({'certified' if certified[i] else 'open'}): "
+            f"L2 {dist[i].item():.5f}, margin {margin[i].item():.3e}")
     if not torch.isfinite(x_adv).all():
         raise RuntimeError("a returned adversarial is non-finite")
     if not (dist.max() <= ATTACK_EPS * (1 + 1e-5) and x_adv.min() >= 0
@@ -726,12 +783,14 @@ def attack_phase(model, dev, n_iter=ATTACK_ITERS,
         raise RuntimeError("a validated success is not misclassified")
     if not (dist[robust] == 0).all():
         raise RuntimeError("a robust image was modified")
+    if (certified & ~robust).any():
+        raise RuntimeError("an adversarial was validated on a certified image: "
+                           f"{(certified & ~robust).nonzero()[:, 0].tolist()}")
     if summary["max_attempts"] >= model.max_steps:
         raise RuntimeError("an attack forward reached max_steps")
     if min(launches.values()) == 0:
         raise RuntimeError(f"a kernel was not launched by the attacks: {launches}")
 
-    model.requires_grad_(False)
     ms = {"kernel": [], "plain": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         ctx = plain_path() if which == "plain" else contextlib.nullcontext()
@@ -1823,10 +1882,321 @@ def segway_phase(dev, smi: str) -> dict:
     return {"launches": launches}
 
 
+# phase 17: every solver, the continuous adjoint, the cached Cayley twin and
+# the legacy conv dynamics
+ODE_STEP = 0.1  # the fixed-grid methods' step
+# two correct float32 solves (kernels against plain versions) may take
+# different accept decisions only at a step whose error ratio both put
+# this close to 1
+RATIO_ROUNDING = 5e-2
+ADJ_BATCH = 512
+CACHED_TOL = 1e-6
+# (B, C, H, W) of the legacy dynamics' input, its features, t_max, tolerance
+LEGACY_SHAPE, LEGACY_FEATURES, LEGACY_T, LEGACY_TOL = (512, 3, 32, 32), 32, 0.5, 1e-4
+# names of the Cayley transform's solve (torch.linalg.solve: LU factor and
+# triangular solves) among the profiler's events
+CAYLEY_SOLVE = ("linalg", "lu_factor", "getrf", "getrs", "trsm", "lu_solve")
+
+
+def _delta(before: dict) -> dict:
+    after = counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _add(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def solver_phase(model, dev) -> dict:
+    """[17a solvers] the flagship at B = TIME_BATCH with each adaptive and
+    fixed-grid method, through the kernels (timed as the best of two) and
+    through the plain path."""
+    from fiode_tpu_torch.ode import integrate
+    from fiode_tpu_torch.ode.tableaus import ADAPTIVE_SOLVERS, FIXED_SOLVERS
+    real_ratio = integrate.rms_error_ratio
+    x = torch.rand(TIME_BATCH, 3, 32, 32, generator=gen(80)).to(dev)
+    with torch.no_grad():  # warm-up of both paths
+        model.solve(x[:256])
+        with plain_path():
+            model.solve(x[:256])
+    launches: dict = {}
+    for method in ADAPTIVE_SOLVERS + FIXED_SOLVERS:
+        fixed = method in FIXED_SOLVERS
+        kw = {"method": method, "step_size": ODE_STEP if fixed else None}
+        res = {}
+        for which in ("plain", "kernel", "kernel"):
+            ratios = []
+
+            def spy(*a, **k):
+                r = real_ratio(*a, **k)
+                ratios.append(r)
+                return r
+
+            ctx = plain_path() if which == "plain" else contextlib.nullcontext()
+            with torch.no_grad(), ctx, \
+                    mock.patch.object(integrate, "rms_error_ratio", spy):
+                before = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sol = model.solve(x, **kw)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                used = _delta(before)
+            if which in res:  # the repeat: its time only
+                ms = min(ms, res[which][1])
+            res[which] = (sol, ms, [r.item() for r in ratios], used)
+        (sk, ms_k, rk, used), (sp, ms_p, rp, _) = res["kernel"], res["plain"]
+        _add(launches, used)
+        err = (sk.ys[-1] - sp.ys[-1]).abs().max().item()
+        same = (sk.nfe, sk.n_accepted, sk.n_rejected) == (sp.nfe, sp.n_accepted,
+                                                           sp.n_rejected)
+        split = next((i for i, (a, b) in enumerate(zip(rk, rp))
+                      if (a <= 1.0) != (b <= 1.0)), None)
+        log(f"[17a {method}] B={TIME_BATCH}{f' step {ODE_STEP}' if fixed else ''}: "
+            f"kernel nfe {sk.nfe} acc {sk.n_accepted} rej {sk.n_rejected} "
+            f"{ms_k:.1f} ms | plain nfe {sp.nfe} acc {sp.n_accepted} rej "
+            f"{sp.n_rejected} {ms_p:.1f} ms | max|d|={err:.3e} (tol {E2E_TOL:g})"
+            + ("" if split is None else f" | first accept decision apart: step "
+               f"{split}, ratios {rk[split]:.6f} / {rp[split]:.6f}")
+            + f" | launches {used}")
+        if not (torch.isfinite(sk.ys).all() and err <= E2E_TOL):
+            raise RuntimeError(f"{method}: kernel path disagrees: {err}")
+        if not fixed and max(sk.attempts, sp.attempts) >= model.max_steps:
+            raise RuntimeError(f"{method}: a solve used its whole step budget")
+        if not same and (fixed or split is None or not all(
+                abs(r - 1.0) <= RATIO_ROUNDING for r in (rk[split], rp[split]))):
+            raise RuntimeError(f"{method}: the step counts differ beyond the "
+                               "rounding of the error ratio")
+        if used["fused_rhs"] != sk.nfe or used["fused_freq_apply"] != len(CONV_SHAPES):
+            raise RuntimeError(f"{method}: launches {used} for NFE {sk.nfe}")
+    return {"launches": launches}
+
+
+def adjoint_phase(flagship_model, dev) -> dict:
+    """[17b adjoint] d(mean CE)/dx by the continuous adjoint (K1 + K2 in the
+    augmented RHS, K2 without weight gradients) against the plain adjoint,
+    for the trained certify configuration on the synthetic test images and
+    the flagship, both at t_max 0.1 (the attack protocol's horizon), with
+    phase 9's rule for GroupSort flips; the cosine to the discrete gradient.
+    The flagship at its own t_max 1 is printed, not gated: there the
+    backward solve cannot reconstruct y (its contracting dynamics expand
+    backwards; the printed y(0) error), so two correct float32 adjoints
+    part, as the JAX package's does from its own discrete gradient."""
+    from fiode_tpu_torch.attacks.apgd import ce_loss
+    from fiode_tpu_torch.entry import certify_model
+    from fiode_tpu_torch.ode import adjoint as adjoint_module
+    from fiode_tpu_torch.train.data import load_dataset
+    trained = certify_model(t_max=T_MAX, max_steps=MAX_STEPS, device=dev,
+                            checkpoint=CERT_DIR / "ckpt" / "best_torch.npz")
+    ds = load_dataset("CIFAR10", str(ROOT / "data"))
+    x_test = torch.from_numpy(ds.test_x[:ADJ_BATCH]).to(dev)
+    x_rand = torch.rand(ADJ_BATCH, 3, 32, 32, generator=gen(61)).to(dev)
+    cases = (("certify, trained", trained, x_test, T_MAX, True),
+             ("flagship", flagship_model, x_rand, T_MAX, True),
+             ("flagship", flagship_model, x_rand, 1.0, False))
+    real_odeint = adjoint_module.odeint
+    launches: dict = {}
+    for name, model, x, t_max, gated in cases:
+        model.requires_grad_(False)  # gradients in x only
+        t_model = model.t_max
+        model.t_max = t_max
+        with torch.no_grad():
+            y = model.predict(x).argmax(-1)
+
+        def grad(use_adjoint, stats=None):
+            xg = x.clone().requires_grad_()
+            sol = model.solve(xg, use_adjoint=use_adjoint, adjoint_stats=stats)
+            (dx,) = torch.autograd.grad(ce_loss(sol.ys[-1], y).mean(), xg)
+            torch.cuda.synchronize()
+            return sol, dx
+
+        res = {}
+        for which in ("plain", "kernel"):
+            stats, branches, ends = {}, [], []
+
+            def spy(*a, **k):
+                sol = real_odeint(*a, **k)
+                ends.append(sol.ys[-1])
+                return sol
+
+            ctx = plain_path() if which == "plain" else contextlib.nullcontext()
+            with ctx, groupsort_branches(model, branches), \
+                    mock.patch.object(adjoint_module, "odeint", spy):
+                before = counts()
+                t0 = time.perf_counter()
+                sol, dx = grad(True, stats)
+                ms = 1e3 * (time.perf_counter() - t0)
+                used = _delta(before)
+            n = model.dynamics.n_hidden
+            # the backward solve's y at t = 0 against h0, the simplex centre
+            y0_err = (ends[-1][:ADJ_BATCH * n] - 1.0 / n).abs().max().item()
+            res[which] = (sol, dx, stats, branches, ms, used, y0_err)
+        (sk, dk, stk, bk, ms_k, used, y0_k), (sp, dp, stp, bp, ms_p, _, y0_p) = (
+            res["kernel"], res["plain"])
+        _add(launches, used)
+        _, dd = grad(False)  # phase 9's discrete gradient, kernel path
+        model.t_max = t_model
+        flipped = torch.zeros(ADJ_BATCH, dtype=torch.bool, device=dev)
+        for a, b in zip(bk, bp, strict=True):
+            flipped |= (a != b).any(-1)
+        n_flipped = int(flipped.sum())
+        scale = dp.abs().max().item()
+        row_err = (dk - dp).abs().reshape(ADJ_BATCH, -1).amax(-1) / scale
+        d = row_err[~flipped].max().item()
+        cos = torch.nn.functional.cosine_similarity(dk.flatten(), dd.flatten(),
+                                                    dim=0).item()
+        nb = stk["backward_nfe"]
+        back_attempts = stk["backward_accepted"] + stk["backward_rejected"]
+        log(f"[17b adjoint] {name} t_max {t_max} B={ADJ_BATCH}"
+            f"{'' if gated else ' (printed, not gated)'}: forward nfe {sk.nfe}, "
+            f"backward nfe {nb} acc {stk['backward_accepted']} rej "
+            f"{stk['backward_rejected']} (plain {stp['backward_nfe']}) | kernel "
+            f"{ms_k:.1f} ms, plain {ms_p:.1f} ms (forward + backward, host "
+            f"clock) | max|dx|={scale:.3e}; max|d dx|/max|dx| on the "
+            f"{ADJ_BATCH - n_flipped} images with no GroupSort flip {d:.3e} (tol "
+            f"{GRAD_DX_TOL:g}), over all {row_err.max().item():.3e} ({n_flipped} "
+            f"flipped) | cosine to the discrete gradient {cos:.6f} | backward "
+            f"y(0) - h0: kernel {y0_k:.3e}, plain {y0_p:.3e} | launches {used}")
+        if not torch.isfinite(dk).all() or not scale > 0:
+            raise RuntimeError(f"{name}: the adjoint gradient is non-finite or zero")
+        if gated and not d <= GRAD_DX_TOL:
+            raise RuntimeError(f"{name}: the kernels' adjoint disagrees: {d}")
+        if gated and n_flipped > GRAD_MAX_FLIPPED * ADJ_BATCH:
+            raise RuntimeError(f"{name}: {n_flipped} images took another GroupSort branch")
+        if max(sk.attempts, back_attempts) >= model.max_steps:
+            raise RuntimeError(f"{name}: a solve used its whole step budget")
+        want = {"fused_rhs": sk.nfe + nb, "fused_rhs_backward": nb,
+                "fused_freq_apply": 2 * len(CONV_SHAPES)}
+        if used != want:
+            raise RuntimeError(f"{name}: launches {used}, want {want}")
+    return {"launches": launches}
+
+
+def profile_solve(fn) -> tuple:
+    """fn() once under torch.profiler: (device-busy ms, the names of the
+    events that belong to a Cayley transform's solve)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, solves = 0.0, set()
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "device_time_total", None)
+            busy += (us if us is not None else getattr(e, "cuda_time_total", 0)) / 1e3
+        if any(tag in e.key.lower() for tag in CAYLEY_SOLVE):
+            solves.add(e.key)
+    return busy, sorted(solves)
+
+
+def cached_phase(dev) -> dict:
+    """[17c cached twin] best_torch.npz's cached twin (Q of every Cayley
+    layer computed once) against the model at B = TIME_BATCH; both solves
+    timed between CUDA events and by the profiler's device-busy sum."""
+    import copy
+    from fiode_tpu_torch.entry import CIFAR_MU, CIFAR_STD, certify_model
+    from fiode_tpu_torch.models.backbones import KWLargeBackbone
+    from fiode_tpu_torch.models.layers import cache_cayley_params
+    model = certify_model(t_max=CERT_T_MAX, max_steps=CERT_MAX_STEPS, device=dev,
+                          checkpoint=CERT_DIR / "ckpt" / "best_torch.npz")
+    twin = copy.deepcopy(model)
+    twin.backbone = KWLargeBackbone(out_dim=N_CLASSES, act="GroupSort",
+                                    mu=CIFAR_MU, std=CIFAR_STD,
+                                    cached=True).to(dev)
+    cache_cayley_params(twin, model)
+    x = torch.rand(TIME_BATCH, 3, 32, 32, generator=gen(81)).to(dev)
+    with torch.no_grad():
+        before = counts()
+        sol_u = model.solve(x)
+        used_u = _delta(before)
+        before = counts()
+        sol_c = twin.solve(x)
+        used = _delta(before)
+        err = (model.output_fn(sol_c.ys[-1])
+               - model.output_fn(sol_u.ys[-1])).abs().max().item()
+        busy_u, _ = profile_solve(lambda: model.solve(x))
+        busy_c, _ = profile_solve(lambda: twin.solve(x))
+        # the same solves between CUDA events (device clock, idle gaps
+        # included), in turns
+        ms_u, ms_c = [], []
+        for run, out in ((model, ms_u), (twin, ms_c), (twin, ms_c), (model, ms_u)):
+            out.append(cuda_ms(lambda: run.solve(x), 1, warmup=0))
+        # the backbone's forward (the dynamics are not cached: their densify
+        # runs its four Cayley solves once per solve, in both)
+        _, solves_u = profile_solve(lambda: model.backbone(x))
+        _, solves_c = profile_solve(lambda: twin.backbone(x))
+    log(f"[17c cached twin] best_torch.npz B={TIME_BATCH}: cached nfe {sol_c.nfe}, "
+        f"uncached nfe {sol_u.nfe} | max|d prediction|={err:.3e} (tol "
+        f"{CACHED_TOL:g}) | solve between CUDA events, best of 2: cached "
+        f"{min(ms_c):.2f} ms, uncached {min(ms_u):.2f} ms | device busy per "
+        f"solve (profiler): cached {busy_c:.2f} ms, uncached {busy_u:.2f} ms | "
+        f"Cayley-solve events in the backbone's forward: cached {solves_c}, "
+        f"uncached {len(solves_u)} ({', '.join(solves_u[:3])}, ...) | launches "
+        f"cached {used}, uncached {used_u}")
+    if not (torch.isfinite(sol_c.ys).all() and err <= CACHED_TOL
+            and sol_c.nfe == sol_u.nfe):
+        raise RuntimeError(f"the cached twin disagrees: {err}, nfe {sol_c.nfe} "
+                           f"vs {sol_u.nfe}")
+    if used["fused_freq_apply"] != len(CONV_SHAPES):
+        raise RuntimeError(f"the cached twin's forward launched K3 "
+                           f"{used['fused_freq_apply']} times")
+    if solves_c or not solves_u:
+        raise RuntimeError(f"the cached twin's forward ran a Cayley solve "
+                           f"({solves_c}), or the check saw none in the "
+                           f"model's ({solves_u})")
+    used = {k: used[k] + used_u[k] for k in used}
+    return {"launches": used}
+
+
+def legacy_phase(dev) -> None:
+    """[17d legacy dynamics] ConvBlockDynamics, basic and bottleneck, rk4
+    step 0.1 to LEGACY_T on the card against the same module on the CPU."""
+    import copy
+    from fiode_tpu_torch.models.legacy_dynamics import ConvBlockDynamics
+    from fiode_tpu_torch.ode.integrate import odeint
+    x = torch.rand(*LEGACY_SHAPE, generator=gen(82))
+    for block in ("basic", "bottleneck"):
+        dyn = ConvBlockDynamics(features=LEGACY_FEATURES, block=block,
+                                in_channels=LEGACY_SHAPE[1], generator=gen(83))
+        sols, ms = {}, {}
+        for where, d, xx in (("cuda", copy.deepcopy(dyn).to(dev), x.to(dev)),
+                             ("cpu", dyn, x)):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                sols[where] = odeint(lambda t, h: d(h, xx), d.state_init(xx),
+                                     [0.0, LEGACY_T], method="rk4",
+                                     step_size=ODE_STEP)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            ms[where] = 1e3 * (time.perf_counter() - t0)
+        err = (sols["cuda"].ys.cpu() - sols["cpu"].ys).abs().max().item()
+        log(f"[17d legacy] ConvBlockDynamics({LEGACY_FEATURES}, {block}) on "
+            f"{LEGACY_SHAPE}, rk4 step {ODE_STEP} to t={LEGACY_T}: nfe "
+            f"{sols['cuda'].nfe} | card {ms['cuda']:.1f} ms, CPU {ms['cpu']:.1f} "
+            f"ms | max|card - CPU|={err:.3e} (tol {LEGACY_TOL:g})")
+        if not (torch.isfinite(sols["cuda"].ys).all() and err <= LEGACY_TOL
+                and sols["cuda"].nfe == sols["cpu"].nfe):
+            raise RuntimeError(f"the legacy dynamics on the card disagree: {err}")
+
+
+def ode_phases(model, dev) -> dict:
+    """[17 solvers and adjoint] phases 17a-d; the kernels' launches."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    _add(launches, solver_phase(model, dev)["launches"])
+    _add(launches, adjoint_phase(model, dev)["launches"])
+    _add(launches, cached_phase(dev)["launches"])
+    torch.cuda.empty_cache()
+    legacy_phase(dev)
+    log(f"[17] phase 17 in {time.perf_counter() - t0:.1f} s | launches {launches}")
+    return {"launches": launches}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", choices=("all", "certify", "train", "control"),
-                    default="all")
+    ap.add_argument("--phases", choices=("all", "certify", "train", "control",
+                                         "ode", "attack"), default="all")
     phases = ap.parse_args().phases
     only_certify, only_train = phases == "certify", phases == "train"
     if not torch.cuda.is_available():
@@ -1870,7 +2240,7 @@ def main() -> None:
     # (n = 10) and phase 3's wide state (n = 100); one nvcc each, together
     builds = [lambda: load_library("fused_cayley_conv"),
               lambda: fused_rhs_module.build(N_CLASSES, MLP)]
-    if not only_train:
+    if phases in ("all", "certify"):
         builds.append(lambda: load_cpp_library("grid_enum"))
     if phases == "all":
         builds.append(lambda: fused_rhs_module.build(WIDE_N, MLP))
@@ -1878,7 +2248,7 @@ def main() -> None:
         list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
     log(f"[2 build] K1 + K2 ({'two widths' if phases == 'all' else 'one width'}) + K3 "
-        f"{'' if only_train else '+ grid_enum (g++) '}built in {build_s:.1f} s "
+        f"{'+ grid_enum (g++) ' if phases in ('all', 'certify') else ''}built in {build_s:.1f} s "
         f"into {BUILD_DIR}")
     # ptxas on every kernel; the main path's own (the flagship's K1, and its
     # K2 without weight gradients: every launch of phases 5, 9 and 10) may
@@ -1904,8 +2274,15 @@ def main() -> None:
     if spilled:
         raise RuntimeError(f"kernels of the main path spill registers: {spilled}")
 
-    if only_certify or only_train:
-        certify_phases(dev) if only_certify else train_phase(dev)
+    if phases != "all":
+        if only_certify:
+            certify_phases(dev)
+        elif only_train:
+            train_phase(dev)
+        elif phases == "attack":
+            attack_phase(dev)
+        else:
+            ode_phases(flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev), dev)
         log(smi)
         log(f"partial run (--phases {phases}): no result line")
         return
@@ -2175,7 +2552,7 @@ def main() -> None:
     k3b = k3_backward_phase(cmodel, dev)
     grad = grad_solve_phase(cmodel, dev)
     fgrad = flagship_grad_phase(model, dev)
-    attack = attack_phase(cmodel, dev)
+    attack = attack_phase(dev)
     torch.cuda.empty_cache()
 
     # 11-13. certification on the trained checkpoint ------------------------------
@@ -2190,6 +2567,9 @@ def main() -> None:
     # 16. the Segway safe controller (no TPU kernel on its path) ---------------
     segway_phase(dev, smi)
 
+    # 17. every solver, the adjoint, the cached twin, the legacy dynamics -------
+    ode = ode_phases(model, dev)
+
     by_phase = {name: {"5 forward solve": launches.get(name, 0),
                        "9 gradient through the solve": grad["launches"][name],
                        "9 flagship gradient": fgrad["launches"][name],
@@ -2197,7 +2577,8 @@ def main() -> None:
                        "12 certify crown": cert["crown"]["launches"][name],
                        "13 certify lipschitz": cert["lipschitz"]["launches"][name],
                        "14 refine": cert["refine"]["launches"][name],
-                       "15 train": train["launches"][name]}
+                       "15 train": train["launches"][name],
+                       "17 solvers and adjoint": ode["launches"][name]}
                 for name in attack["launches"]}
     for name in ("fused_rhs", "fused_freq_apply"):  # the certification paths' kernels
         if min(by_phase[name].values()) == 0:
@@ -2228,7 +2609,7 @@ def main() -> None:
          "bound_by": max(("bytes", "operations"), key=kf.get),
          "library_ms": kf["fft"]},
     ]
-    log(f"[done] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-17 in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

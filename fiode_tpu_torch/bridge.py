@@ -7,8 +7,14 @@ The JAX params are a nested dict of arrays with flax names, e.g.::
      "dynamics": {"hidden_to_mlp": {...}, "U_x": {...}, "mlp_to_mlp": {...},
                   "mlp_to_hidden": {...}}}
 
-Both packages keep one layout ((out, in) linears, (co, ci, k, k) convs), so
-loading renames and copies, and never transposes.
+Both packages keep one layout ((out, in) linears, (co, ci, k, k) convs) for
+the classifier's layers, so loading them renames and copies.  Where the JAX
+package has flax's own layers, loading changes the layout: the legacy conv
+dynamics' ``nn.Conv`` kernels (HWIO to OIHW), ``nn.Dense`` kernels ((in,
+out) to (out, in)) and ``GroupNorm`` scales (``weight`` here).  A cached
+Cayley conv's complex64 Q (n, nf, co, ci) becomes the float32 pair ``Qr``,
+``Qi`` (F, co, ci), F = n nf; the "linear" output's kernel is
+``output.weight``.
 
 A checkpoint crosses as a flat ``.npz`` whose keys are the flax names joined
 by ``/`` (``backbone/CayleyConv_0/weight``), float32 arrays and nothing
@@ -39,12 +45,18 @@ __all__ = ["params_from_numpy", "params_to_numpy", "load_npz", "save_npz",
 _LISTS = {"CayleyConv": "convs", "CayleyLinear": "linears",
           "LipsConv": "convs", "LipsLinear": "linears"}
 # flax leaf names -> the port's parameter names
-_LEAVES = {"kernel": "weight"}
+_LEAVES = {"kernel": "weight", "scale": "weight"}
 # the port's layers whose flax counterpart calls its weight "kernel"
-_KERNEL_LAYERS = ("LipsLinear", "LipsConv")
+_KERNEL_LAYERS = ("LipsLinear", "LipsConv", "LinearOutput")
+# flax paths the port names otherwise (the legacy dynamics' stem)
+_PATHS = {("stem", "inner", "layers_0"): ("stem",)}
 
 
 def _port_name(path) -> str:
+    path = tuple(path)
+    for flax, port in _PATHS.items():
+        if path[-len(flax) - 1:-1] == flax:
+            path = path[:-len(flax) - 1] + port + path[-1:]
     out = []
     for part in path:
         m = re.fullmatch(r"([A-Za-z]+)_(\d+)", part)
@@ -64,13 +76,37 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield prefix + (key,), val
 
 
+def _owner(model: nn.Module, name: str) -> nn.Module:
+    return model.get_submodule(name.rpartition(".")[0])
+
+
+def _port_tensors(model: nn.Module, path, val):
+    """The port's (name, float32 tensor) pairs for one flax leaf: a cached
+    conv's complex Q (n, nf, co, ci) becomes Qr and Qi (F, co, ci); a
+    legacy conv's HWIO kernel becomes OIHW; a flax Dense's (in, out) kernel
+    becomes (out, in); everything else keeps its layout."""
+    name = _port_name(path)
+    val = np.asarray(val)
+    if np.iscomplexobj(val):
+        base = name[:-1]  # the prefix of the leaf "Q"
+        q = val.reshape((-1,) + val.shape[-2:])
+        return [(f"{base}Qr", torch.from_numpy(q.real.astype(np.float32))),
+                (f"{base}Qi", torch.from_numpy(q.imag.astype(np.float32)))]
+    t = torch.from_numpy(np.array(val, dtype=np.float32))
+    if path[-1] == "kernel":
+        kind = type(_owner(model, name)).__name__
+        if kind == "_Conv":
+            t = t.permute(3, 2, 0, 1).contiguous()
+        elif kind == "Linear":
+            t = t.T.contiguous()
+    return [(name, t)]
+
+
 def params_from_numpy(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Copy a JAX params tree (numpy arrays) into ``model`` in place; every
     parameter must be matched.  Returns ``model``."""
-    state = {
-        _port_name(path): torch.from_numpy(np.array(val, dtype=np.float32))
-        for path, val in _flatten(tree)
-    }
+    state = dict(pair for path, val in _flatten(tree)
+                 for pair in _port_tensors(model, path, val))
     model.load_state_dict(state, strict=True)
     return model
 
@@ -109,19 +145,45 @@ def _flax_name(model: nn.Module, name: str) -> str:
             out.append(parents[i])
             i += 1
         mod = child
-    if leaf == "weight" and type(mod).__name__ in _KERNEL_LAYERS:
+    kind = type(mod).__name__
+    if leaf == "weight" and kind in _KERNEL_LAYERS + ("_Conv", "Linear"):
         leaf = "kernel"
+    elif leaf == "weight" and kind == "GroupNorm":
+        leaf = "scale"
+    elif leaf in ("Qr", "Qi"):
+        leaf = "Q"
+    for flax, port in _PATHS.items():
+        if tuple(out[-len(port):]) == port:
+            out = out[:-len(port)] + list(flax)
     return "/".join(out + [leaf])
 
 
 def _flat_numpy(model: nn.Module) -> dict:
-    return {_flax_name(model, name): p.detach().cpu().numpy()
-            for name, p in model.named_parameters()}
+    """The inverse of ``_port_tensors`` over every parameter of ``model``."""
+    flat = {}
+    for name, p in model.named_parameters():
+        a = p.detach().cpu().numpy()
+        mod = _owner(model, name)
+        kind = type(mod).__name__
+        leaf = name.rpartition(".")[2]
+        if leaf == "Qi":
+            continue
+        if leaf == "Qr":
+            n = mod.n
+            a = (a + 1j * mod.Qi.detach().cpu().numpy()).astype(np.complex64)
+            a = a.reshape((n, n // 2 + 1) + a.shape[1:])
+        elif kind == "_Conv":
+            a = a.transpose(2, 3, 1, 0)
+        elif kind == "Linear" and leaf == "weight":
+            a = a.T
+        flat[_flax_name(model, name)] = a.copy(order="C")
+    return flat
 
 
 def params_to_numpy(model: nn.Module) -> dict:
     """``model``'s parameters as the JAX package's nested params tree of
-    float32 numpy arrays (the inverse of ``params_from_numpy``)."""
+    float32 (a cached conv's Q: complex64) numpy arrays, the inverse of
+    ``params_from_numpy``."""
     return _unflatten(_flat_numpy(model))
 
 

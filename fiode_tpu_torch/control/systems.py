@@ -73,15 +73,14 @@ class Segway:
 
         Returns (xs (T, N, 3), us (T, N, 1)) at the times ``ts``.  Raises if
         the solve attempts ``max_steps`` steps: a partial trajectory is never
-        returned."""
-        if method != "dopri5":
-            raise ValueError(f"the port integrates with dopri5 only, not {method!r}")
-
+        returned.  ``method`` is an adaptive one (a fixed-grid method raises
+        for want of a step, as in the JAX package)."""
         def f(t, x):
             return self(x, controller(x, t))
 
         with torch.no_grad():
-            sol = odeint(f, x0, ts, rtol=rtol, atol=atol, max_steps=max_steps)
+            sol = odeint(f, x0, ts, method=method, rtol=rtol, atol=atol,
+                         max_steps=max_steps)
             if sol.attempts >= max_steps:
                 raise RuntimeError(
                     f"simulate attempted max_steps={max_steps} steps "

@@ -37,7 +37,7 @@ import torch
 from .attacks.autoattack import STANDARD, AutoAttackSuite
 from .models.backbones import make_backbone
 from .models.dynamics import SimplexDynamics
-from .models.ivp import NeuralODEClassifier
+from .models.ivp import OUTPUTS, NeuralODEClassifier
 from .train.data import load_dataset
 from .train.schedulers import (
     CompositeSamplerScheduler,
@@ -60,18 +60,17 @@ def _ordered_callbacks(cfg: dict, key: str):
 
 def build_model(cfg: dict, device="cuda") -> NeuralODEClassifier:
     """The classifier a composed config describes, weights drawn from its
-    seed on the CPU and moved to ``device``.  The port has the
-    UniformInitFun start, the default output and dopri5; another choice
-    raises."""
+    seed on the CPU and moved to ``device``.  As in the JAX package: the
+    init_fun's target UniformInitFun starts at the simplex centre and any
+    other at zeros; an output target other than default, first_n or linear
+    is the default output; ``val_ode_solver`` is the solve's method (a
+    fixed-grid one needs ``step_size`` at the call, the config gives
+    none)."""
     m, ds = cfg["module"], cfg["dataset"]
     dyn_cfg = m["dynamics"]
     pm = (m.get("init_fun") or {}).get("param_map") or {}
     init_target = (m.get("init_fun") or {}).get("target", "UniformInitFun")
     out_target = (m.get("output") or {}).get("target", "default")
-    solver = m.get("val_ode_solver", "dopri5")
-    if (init_target, out_target, solver) != ("UniformInitFun", "default", "dopri5"):
-        raise ValueError(f"the port has no init {init_target!r}, output "
-                         f"{out_target!r} or solver {solver!r} yet")
     g = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     backbone = make_backbone(
         pm.get("target", "TinyMLP"), out_dim=int(pm.get("out_dim", 128)),
@@ -91,7 +90,11 @@ def build_model(cfg: dict, device="cuda") -> NeuralODEClassifier:
         backbone=backbone, dynamics=dynamics, t_max=float(m["t_max"]),
         rtol=float(m.get("val_ode_tol", 1e-3)),
         atol=float(m.get("val_ode_tol", 1e-3)),
-        max_steps=int(m.get("max_steps", 64)))
+        max_steps=int(m.get("max_steps", 64)),
+        n_classes=int(ds["N_CLASSES"]),
+        h0_init="uniform" if init_target == "UniformInitFun" else "zeros",
+        output=out_target if out_target in OUTPUTS else "default",
+        method=m.get("val_ode_solver", "dopri5"), generator=g)
     return model.to(device)
 
 

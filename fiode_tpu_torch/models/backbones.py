@@ -44,29 +44,34 @@ class KWLargeBackbone(nn.Module):
     """Cayley orthogonal KWLarge: 4 convs + 3 linears.
 
     3x32x32 -> 32c3 -> 32c4/s2 -> 64c3 -> 64c4/s2 -> flatten -> 512 -> 512
-    -> out_dim, with ``act`` after every layer but the last.
+    -> out_dim, with ``act`` after every layer but the last.  ``cached``
+    builds the test / inference twin (``layers.cache_cayley_params`` fills
+    it from a trained backbone); ``inter`` stops at the second 512-wide
+    linear's activation and has no head.
     """
 
     def __init__(self, out_dim: int = 128, act: str = "GroupSort",
                  mu: Sequence[float] = (0.0,), std: Sequence[float] = (1.0,),
                  width: int = 1, in_channels: int = 3, img_size: int = 32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cached: bool = False, inter: bool = False):
         super().__init__()
         w, g = width, generator
+        self.inter = inter
         self.norm = Normalize(mu, std)
         self.act = _act(act)
+        kw = dict(generator=g, cached=cached)
         self.convs = nn.ModuleList([
-            CayleyConv(in_channels, 32 * w, 3, generator=g),
-            CayleyConv(32 * w, 32 * w, 4, stride=2, generator=g),
-            CayleyConv(32 * w, 64 * w, 3, generator=g),
-            CayleyConv(64 * w, 64 * w, 4, stride=2, generator=g),
+            CayleyConv(in_channels, 32 * w, 3, img_size=img_size, **kw),
+            CayleyConv(32 * w, 32 * w, 4, stride=2, img_size=img_size, **kw),
+            CayleyConv(32 * w, 64 * w, 3, img_size=img_size // 2, **kw),
+            CayleyConv(64 * w, 64 * w, 4, stride=2, img_size=img_size // 2,
+                       **kw),
         ])
         flat = 64 * w * (img_size // 4) ** 2
-        self.linears = nn.ModuleList([
-            CayleyLinear(flat, 512 * w, generator=g),
-            CayleyLinear(512 * w, 512, generator=g),
-            CayleyLinear(512, out_dim, generator=g),
-        ])
+        self.linears = nn.ModuleList(
+            [CayleyLinear(flat, 512 * w, **kw), CayleyLinear(512 * w, 512, **kw)]
+            + ([] if inter else [CayleyLinear(512, out_dim, **kw)]))
 
     def forward(self, x):
         x = self.norm(x)
@@ -75,7 +80,7 @@ class KWLargeBackbone(nn.Module):
         x = x.reshape(x.shape[0], -1)
         x = self.act(self.linears[0](x))
         x = self.act(self.linears[1](x))
-        return self.linears[2](x)
+        return x if self.inter else self.linears[2](x)
 
 
 class PlainCNNBackbone(nn.Module):
@@ -139,13 +144,20 @@ def make_backbone(name: str, *, out_dim: int, act: str, mu, std,
                   ) -> Optional[nn.Module]:
     """The param_map registry of the JAX package's ``make_backbone``:
     ORTHO_KWLarge_Concat, ORTHO_KWLargeMNIST_Concat (KWLarge at the input's
-    channels and size), CIFAR_4C3F, CIFAR_4C3F_nolips, CIFAR_6C2F, TinyMLP,
-    and Identity (no backbone: the dynamics see the flattened pixels)."""
+    channels and size), their ``_test`` twins (cached Cayley transforms,
+    to fill with ``layers.cache_cayley_params``), ORTHO_KWLarge_inter (the
+    512-wide representation, no head), CIFAR_4C3F, CIFAR_4C3F_nolips,
+    CIFAR_6C2F, TinyMLP, and Identity (no backbone: the dynamics see the
+    flattened pixels)."""
     kw = dict(mu=mu, std=std, generator=generator)
-    if name in ("ORTHO_KWLarge_Concat", "ORTHO_KWLargeMNIST_Concat"):
+    kwlarge = {"ORTHO_KWLarge_Concat": {}, "ORTHO_KWLargeMNIST_Concat": {},
+               "ORTHO_KWLarge_Concat_test": {"cached": True},
+               "ORTHO_KWLargeMNIST_Concat_test": {"cached": True},
+               "ORTHO_KWLarge_inter": {"inter": True}}
+    if name in kwlarge:
         return KWLargeBackbone(out_dim=out_dim, act=act,
                                in_channels=in_channels, img_size=img_size,
-                               **kw)
+                               **kw, **kwlarge[name])
     if name in ("CIFAR_4C3F", "CIFAR_4C3F_nolips", "CIFAR_6C2F"):
         return PlainCNNBackbone("6C2F" if name == "CIFAR_6C2F" else "4C3F",
                                 out_dim=out_dim, act=act,

@@ -102,8 +102,8 @@ class SimplexDynamics(nn.Module):
             f_tilde = (upper - lower) * torch.sigmoid(f_tilde) + lower
         return simplex_cone_project(lower, f_tilde, self.qp_iters)
 
-    def forward(self, h, x):
-        return self.eval_dot(h, x)
+    def forward(self, h, x, **kw):
+        return self.eval_dot(h, x, **kw)
 
 
 def densify_dynamics_params(

@@ -1,6 +1,7 @@
 """Layers (counterpart of ``fiode_tpu/models/layers.py``): Normalize,
-GroupSort, space_to_depth, CayleyLinear, CayleyConv, LipsLinear and
-LipsConv.
+GroupSort, space_to_depth, CayleyLinear, CayleyConv (each also as the
+``cached=True`` twin that ``cache_cayley_params`` fills), LipsLinear and
+LipsConv; the Cayley layers with or without a bias (``use_bias``).
 
 Weights keep the JAX layouts: (out, in) for linears, (co, ci, k, k) for
 convs, NCHW activations.  Initialisers follow flax's variance scaling
@@ -27,6 +28,7 @@ __all__ = [
     "CayleyConv",
     "LipsLinear",
     "LipsConv",
+    "cache_cayley_params",
 ]
 
 # flax's truncated-normal variance scaling divides the std by the std of a
@@ -87,22 +89,41 @@ def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
 
 
 class CayleyLinear(nn.Module):
-    """Orthogonal linear layer y = x Q^T + b, Q = cayley(alpha W / ||W||)."""
+    """Orthogonal linear layer y = x Q^T + b, Q = cayley(alpha W / ||W||).
+
+    ``cached=True`` is the test / inference twin: Q itself is the parameter,
+    filled once from trained weights by ``cache_cayley_params``, so no
+    Cayley transform runs in the forward.  It starts as NaN, so that a twin
+    used unfilled gives NaN features instead of plausible ones.
+    """
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = True, cached: bool = False):
         super().__init__()
-        w = _variance_scaling((out_features, in_features), generator, True)
-        self.weight = nn.Parameter(w)
-        self.alpha = nn.Parameter(torch.linalg.norm(w))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.cached = cached
+        if cached:
+            # laid out as cayley() lays out Q (transposed storage when wide),
+            # so that x @ Q^T runs the same product as the uncached layer
+            Q = torch.full((in_features, out_features), float("nan")).T
+            if out_features >= in_features:
+                Q = Q.contiguous()
+            self.Q = nn.Parameter(Q)
+        else:
+            w = _variance_scaling((out_features, in_features), generator, True)
+            self.weight = nn.Parameter(w)
+            self.alpha = nn.Parameter(torch.linalg.norm(w))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
 
     def kernel(self) -> torch.Tensor:
         """The orthogonal (out, in) matrix Q."""
+        if self.cached:
+            return self.Q
         return cayley_linear_kernel(self.weight, self.alpha)
 
     def forward(self, x):
-        return x @ self.kernel().T + self.bias
+        y = x @ self.kernel().T
+        return y if self.bias is None else y + self.bias
 
 
 class CayleyConv(nn.Module):
@@ -111,11 +132,20 @@ class CayleyConv(nn.Module):
     stride=2 is space_to_depth(2) followed by a stride-1 orthogonal conv
     with kernel ceil(k/2); ``in_channels`` counts the channels before it.
     The frequency apply is ``fused_freq_apply`` (kernel K3 on CUDA).
+
+    ``cached=True`` is the test / inference twin for inputs of spatial size
+    ``img_size`` (before the space_to_depth): its parameters are the
+    per-frequency matrices Q (F, co, ci), F = n (n // 2 + 1) at the conv's
+    own size n, as real and imaginary parts ``Qr`` and ``Qi``, filled once
+    by ``cache_cayley_params`` (NaN until then); the forward is K3 with
+    them, and no Cayley transform runs.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = True, cached: bool = False,
+                 img_size: Optional[int] = None):
         super().__init__()
         if stride == 2:
             in_channels *= 4
@@ -123,19 +153,64 @@ class CayleyConv(nn.Module):
         elif stride != 1:
             raise ValueError("CayleyConv supports stride 1 or 2")
         self.stride = stride
-        w = _variance_scaling(
-            (features, in_channels, kernel_size, kernel_size), generator, True
-        )
-        self.weight = nn.Parameter(w)
-        self.alpha = nn.Parameter(torch.linalg.norm(w))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.cached = cached
+        if cached:
+            if img_size is None:
+                raise ValueError("a cached CayleyConv needs img_size")
+            n = img_size // stride
+            shape = (n * (n // 2 + 1), features, in_channels)
+            self.n = n
+            self.Qr = nn.Parameter(torch.full(shape, float("nan")))
+            self.Qi = nn.Parameter(torch.full(shape, float("nan")))
+        else:
+            w = _variance_scaling(
+                (features, in_channels, kernel_size, kernel_size), generator,
+                True)
+            self.weight = nn.Parameter(w)
+            self.alpha = nn.Parameter(torch.linalg.norm(w))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def freq_matrices(self, n: int):
+        """(Qr, Qi), the real and imaginary parts of Q (F, co, ci) at
+        spatial size n."""
+        if self.cached:
+            if n != self.n:
+                raise ValueError(f"this cached CayleyConv holds Q for n = "
+                                 f"{self.n}, not {n}")
+            return self.Qr, self.Qi
+        Q = cayley_conv_kernel(self.weight, self.alpha, n)
+        return Q.real.contiguous(), Q.imag.contiguous()
 
     def forward(self, x):
         if self.stride == 2:
             x = space_to_depth(x, 2)
-        Q = cayley_conv_kernel(self.weight, self.alpha, x.shape[-1])
-        y = fused_freq_apply(x, Q.real.contiguous(), Q.imag.contiguous())
-        return y + self.bias[None, :, None, None]
+        y = fused_freq_apply(x, *self.freq_matrices(x.shape[-1]))
+        return y if self.bias is None else y + self.bias[None, :, None, None]
+
+
+@torch.no_grad()
+def cache_cayley_params(cached: nn.Module, trained: nn.Module) -> nn.Module:
+    """Fill the ``cached=True`` twin ``cached`` from ``trained`` in place:
+    every cached CayleyLinear gets Q = cayley_linear_kernel of the trained
+    weights, every cached CayleyConv its per-frequency Q at its size, and
+    every other parameter and buffer (biases, plain layers, the dynamics) is
+    copied.  The two modules must have the same structure.  Returns
+    ``cached``."""
+    src = dict(trained.named_modules())
+    for name, mod in cached.named_modules():
+        if isinstance(mod, CayleyLinear) and mod.cached:
+            t = src[name]
+            mod.Q.copy_(cayley_linear_kernel(t.weight, t.alpha))
+        elif isinstance(mod, CayleyConv) and mod.cached:
+            t = src[name]
+            Q = cayley_conv_kernel(t.weight, t.alpha, mod.n)
+            mod.Qr.copy_(Q.real)
+            mod.Qi.copy_(Q.imag)
+    theirs = trained.state_dict()
+    for k, v in cached.state_dict().items():
+        if k in theirs:
+            v.copy_(theirs[k])
+    return cached
 
 
 class LipsLinear(nn.Module):

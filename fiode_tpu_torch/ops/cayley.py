@@ -9,7 +9,11 @@
                              F = n * (n // 2 + 1), ordered f * nf + g.
   * ``apply_freq_matrices``  apply them to an NCHW input: ``impl="dft"``
                              (dense rDFT matrices, the plain version of the
-                             fused kernel K3) or ``impl="fft"`` (torch.fft).
+                             fused kernel K3), ``impl="dft1"`` (the same
+                             transform as 1-D DFTs, rows then columns) or
+                             ``impl="fft"`` (torch.fft).  These are plain
+                             versions: on CUDA the layers apply Q with K3
+                             whatever ``impl`` is.
   * ``groupsort2``           MaxMin activation over channel pairs.
 """
 from __future__ import annotations
@@ -119,6 +123,13 @@ def _dft2_mats(n: int):
 
 
 @functools.lru_cache(maxsize=32)
+def _dft1_tensors(n: int, device: torch.device):
+    """(D, Dh, Dinv, Einv) as complex64 tensors on ``device``."""
+    return tuple(torch.from_numpy(a.astype(np.complex64)).to(device)
+                 for a in _dft1_mats(n))
+
+
+@functools.lru_cache(maxsize=32)
 def _dft2_tensors(n: int, device: torch.device):
     """(D2.real, D2.imag, M2.real, M2.imag) as float32 tensors on ``device``."""
     D2, M2 = _dft2_mats(n)
@@ -147,12 +158,21 @@ def apply_freq_matrices(x: torch.Tensor, Q: torch.Tensor, *,
         Yi = (Qr @ Xi + Qi @ Xr).reshape(F, co * B)
         y = M2r @ Yr - M2i @ Yi  # (p, co * B)
         return y.reshape(n, n, co, B).permute(3, 2, 0, 1).contiguous()
+    if impl == "dft1":
+        # rows then columns: the rfft along the last axis, the full DFT along
+        # the other, the mix, and the two inverses (Hermitian weights folded
+        # into Einv, so the real part is the result)
+        D, Dh, Dinv, Einv = _dft1_tensors(n, x.device)
+        xf = D @ (x.to(torch.complex64) @ Dh.T)  # (B, ci, n, nf)
+        xf = xf.permute(2, 3, 1, 0).reshape(F, ci, B)
+        yf = (Q @ xf).reshape(n, nf, co, B).permute(3, 2, 0, 1)
+        return (Dinv @ (yf @ Einv.T)).real.contiguous()
     if impl == "fft":
         xf = torch.fft.rfft2(x)  # (B, ci, n, nf)
         xf = xf.permute(2, 3, 1, 0).reshape(F, ci, B)
         yf = (Q @ xf).reshape(n, nf, co, B).permute(3, 2, 0, 1)
         return torch.fft.irfft2(yf, s=(n, n))
-    raise ValueError(f"impl must be 'dft' or 'fft', got {impl!r}")
+    raise ValueError(f"impl must be 'dft', 'dft1' or 'fft', got {impl!r}")
 
 
 def groupsort2(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

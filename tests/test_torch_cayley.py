@@ -85,7 +85,7 @@ def test_apply_freq_matrices_rejects_unknown_impl():
     with pytest.raises(ValueError):
         tc.apply_freq_matrices(torch.zeros(1, 2, 4, 4),
                                torch.zeros(12, 2, 2, dtype=torch.complex64),
-                               impl="dft1")
+                               impl="dft3")
 
 
 @pytest.mark.parametrize("shape,dim", [((4, 6, 5, 5), 1), ((7, 12), -1),

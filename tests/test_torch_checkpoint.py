@@ -167,7 +167,9 @@ def test_import_leaves_jax_out():
         "fiode_tpu_torch.train.lips, fiode_tpu_torch.ops.power_iteration, "
         "fiode_tpu_torch.utils.config, fiode_tpu_torch.utils.checkpoint, "
         "fiode_tpu_torch.utils.logging, fiode_tpu_torch.models.backbones, "
-        "fiode_tpu_torch.control, fiode_tpu_torch.verify.interval")
+        "fiode_tpu_torch.control, fiode_tpu_torch.verify.interval, "
+        "fiode_tpu_torch.ode.adjoint, fiode_tpu_torch.ode.tableaus, "
+        "fiode_tpu_torch.models.legacy_dynamics")
 
 
 def test_chip_smoke_imports_leave_jax_out():

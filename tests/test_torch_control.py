@@ -280,7 +280,7 @@ def test_simulate_raises_at_max_steps():
     with pytest.raises(RuntimeError, match="max_steps"):
         Segway().simulate(x0, tctrl.LinearController(K), np.linspace(0, 8, 20),
                           max_steps=10)
-    with pytest.raises(ValueError, match="dopri5"):
+    with pytest.raises(ValueError, match="step_size"):
         Segway().simulate(x0, tctrl.LinearController(K), [0.0, 1.0], method="rk4")
 
 

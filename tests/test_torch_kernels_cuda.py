@@ -460,3 +460,55 @@ def test_lyapunov_step_through_kernels_matches_plain(cuda):
         sized = gp[n].abs() >= 0.1 * scale
         assert (pk[n] - pp[n])[sized].abs().max().item() <= 0.05 * lr, n
         assert (pk[n] - pp[n]).abs().max().item() <= 2 * lr, n
+
+
+@pytest.mark.parametrize("weights", [False, True])
+def test_adjoint_through_kernels_matches_the_plain_adjoint(cuda, weights):
+    """solve(use_adjoint=True) with ReLU dynamics: the augmented RHS runs K1
+    then K2 (with weight gradients only when the dynamics need them), once
+    each per backward evaluation; its gradients equal those of the plain
+    adjoint (rhs_reference and rhs_vjp_reference) within 5e-3 of the
+    largest.  At t_max 0.1, the attack protocol's horizon: over t_max 1 the
+    squashed dynamics contract so strongly that the backward solve cannot
+    reconstruct y, and two correct float32 adjoints part."""
+    from unittest import mock
+
+    from fiode_tpu_torch.models import ivp
+
+    def plain_vjp(h, xc, g, p, *consts, weight_grads=True):
+        dh, dxc, dp = rhs_vjp_reference(h, xc, g, p, *consts)
+        return dh, dxc, dp if weight_grads else None
+
+    model = _tiny_classifier(5).to(cuda)
+    model.dynamics.scale_nominal = True
+    model.t_max = 0.1
+    model.requires_grad_(weights)
+    x = torch.rand(300, 1, 8, 8, generator=torch.Generator().manual_seed(6))
+    x = x.to(cuda)
+    y = torch.arange(300, device=cuda) % 10
+    grads = []
+    for plain in (False, True):
+        ctx = (mock.patch.multiple(ivp, fused_rhs=rhs_reference,
+                                   fused_rhs_vjp=plain_vjp)
+               if plain else contextlib.nullcontext())
+        model.zero_grad()
+        xg = x.clone().requires_grad_()
+        stats = {}
+        before = (fused_rhs.launches, fused_rhs_vjp.launches)
+        with ctx:
+            sol = model.solve(xg, use_adjoint=True, adjoint_stats=stats)
+            loss = -torch.log(torch.take_along_dim(sol.ys[-1], y[:, None], 1))
+            loss.mean().backward()
+        torch.cuda.synchronize()
+        k1 = fused_rhs.launches - before[0]
+        k2 = fused_rhs_vjp.launches - before[1]
+        nb = stats["backward_nfe"]
+        if plain:
+            assert (k1, k2) == (0, 0)
+        else:
+            assert (k1, k2) == (sol.nfe + nb, nb) and nb > 0
+        grads.append([xg.grad] + [p.grad for p in model.dynamics.parameters()
+                                  if weights])
+    for a, b in zip(*grads):
+        assert a is not None and b is not None
+        assert (a - b).abs().max() <= 5e-3 * b.abs().max()
