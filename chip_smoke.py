@@ -96,10 +96,25 @@ eval-mode solve.
     ConvBlockDynamics(32), basic and bottleneck, on (512, 3, 32, 32), rk4
     to t = 0.5 on the card against the CPU.
 
+  * phase 18: the command line, ``python -m fiode_tpu_torch`` in
+    subprocesses on the card (each reporting its kernels' launches):
+    certify-crown of test image 4 over the whole grid against the artifact
+    and summarize-stream of its log (18a), certify-lipschitz of images 0-3
+    against the same sweep in this process and the artifact (18b),
+    eval-autoattack of 64 images with apgd-ce and apgd-t at t_max 0.1 that
+    breaks no certified image (18c), one epoch of cifar_train.yaml and
+    certify-lipschitz restoring its best.npz (18d), the same epoch under
+    torch.distributed.run on one NCCL rank, equal to 18d (18e),
+    segway-certify at r = 0.01 with its figures against segway_f32.json
+    (18f), and, in this process, the Certifier on a mesh of the card
+    ([cuda:0] x 2 over cells, a 1 x 1 img x cell mesh) against the
+    unsharded sweep (18g).
+
 ``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
 certification path, ``--phases train`` phases 1, 2 and 15, ``--phases
 control`` phases 1 and 16 (no build), ``--phases attack`` phases 1, 2 and
-10, and ``--phases ode`` phases 1, 2 and 17; none prints a result line.
+10, ``--phases ode`` phases 1, 2 and 17, and ``--phases cli`` phases 1, 2
+and 18; none prints a result line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -2193,10 +2208,275 @@ def ode_phases(model, dev) -> dict:
     return {"launches": launches}
 
 
+# phase 18: the command line, python -m fiode_tpu_torch, in subprocesses on
+# the card; its outputs go to build/cli_smoke/
+CLI_DIR = ROOT / "build" / "cli_smoke"
+CLI_CROWN_IMAGE = 4            # 18a: certified by the artifact
+CLI_LIPS_IMAGES = range(0, 4)  # 18b
+CLI_ATTACK_IMAGES = 64         # 18c
+CLI_MESH_IMAGES = range(4, 6)  # 18g
+CLI_MESH_CROWN_CELLS = 16 * 16 * CERT_CHUNK  # 18g's CROWN prefix of the grid
+CLI_TIMEOUT = 600
+# the CLI run as ``python -m fiode_tpu_torch`` (runpy, as -m does), then the
+# kernels' launch counts of that process as the last line of its stdout
+CLI_COUNTING = (
+    "import json, runpy\n"
+    "runpy.run_module('fiode_tpu_torch', run_name='__main__', alter_sys=True)\n"
+    "from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply\n"
+    "from fiode_tpu_torch.ops.fused_rhs import fused_rhs, fused_rhs_vjp\n"
+    "print('LAUNCHES ' + json.dumps({'fused_rhs': fused_rhs.launches,\n"
+    "      'fused_rhs_backward': fused_rhs_vjp.launches,\n"
+    "      'fused_freq_apply': fused_freq_apply.launches}), flush=True)\n")
+
+
+def run_cli(tag: str, args: list, counted: bool = True, launcher=None) -> dict:
+    """One command of the CLI in a subprocess from the repo root: its
+    stdout, seconds and (``counted``) the kernels' launches in it.  A
+    failing command fails the phase with its stderr printed."""
+    cmd = ([sys.executable, "-c", CLI_COUNTING] if counted
+           else [sys.executable, "-m", "fiode_tpu_torch"]) + args
+    if launcher:
+        cmd = [sys.executable, "-m", *launcher, "-m", "fiode_tpu_torch", *args]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              check=True, timeout=CLI_TIMEOUT)
+    except subprocess.CalledProcessError as e:
+        log(f"[{tag}] {' '.join(cmd[-len(args):])} failed:\n{e.stdout[-3000:]}\n"
+            f"{e.stderr[-6000:]}")
+        raise
+    secs = time.perf_counter() - t0
+    out = proc.stdout.splitlines()
+    launches = None
+    if counted:
+        launches = json.loads(out[-1][len("LAUNCHES "):])
+        out = out[:-1]
+    for ln in [ln for ln in out if ln.strip()][-4:]:
+        log(f"    {tag} | {ln[:200]}")
+    return {"stdout": "\n".join(out), "seconds": secs, "launches": launches}
+
+
+def cli_phase(dev) -> dict:
+    """[18 cli] the port's command line on the card: 18a certify-crown of
+    image 4 over the whole T = 40 grid and summarize-stream of its log;
+    18b certify-lipschitz of images 0-3; 18c eval-autoattack (apgd-ce,
+    apgd-t) of 64 images; 18d train cifar_train.yaml for one epoch, then
+    certify-lipschitz restoring its best.npz; 18e the same training under
+    torch.distributed.run on one NCCL rank; 18f segway-certify with figures;
+    18g the Certifier on a mesh of the card, in this process."""
+    import importlib.util
+    import shutil
+    import numpy as np
+    from fiode_tpu_torch.entry import certify_model
+    from fiode_tpu_torch.parallel.mesh import Mesh
+    from fiode_tpu_torch.train.data import load_dataset
+    from fiode_tpu_torch.verify.certify import Certifier
+    from fiode_tpu_torch.verify.grid import enumerate_decision_boundary
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    run_dir = str(CERT_DIR.relative_to(ROOT))
+    certify_args = ["--config-name", "cifar_certify.yaml", "--run-dir", run_dir]
+    secs, launches = {}, {}
+
+    # 18a: CROWN over the whole grid, then summarize-stream of its log
+    crown_log = CLI_DIR / "crown.jsonl"
+    r = run_cli("18a", ["certify-crown", *certify_args,
+                        f"++start_ind={CLI_CROWN_IMAGE}",
+                        f"++end_ind={CLI_CROWN_IMAGE + 1}",
+                        "--stream-out", str(crown_log)])
+    secs["18a"], launches["18a"] = r["seconds"], r["launches"]
+    summary = json.loads(Path(f"{crown_log}.json").read_text())
+    want = json.loads((CERT_DIR / "certify_stream_full_rep2.jsonl.json").read_text())
+    expect = [i for i in want["certified_idx"] if i == CLI_CROWN_IMAGE]
+    r = run_cli("18a", ["summarize-stream", str(crown_log), "--out",
+                        str(CLI_DIR / "crown_summary.json")], counted=False)
+    secs["18a summarize"] = r["seconds"]
+    folded = json.loads((CLI_DIR / "crown_summary.json").read_text())
+    common = ("n_images", "matmul_precision", "clean_acc", "certified_acc",
+              "certified_idx", "cells_checked")
+    log(f"[18a certify-crown] image {CLI_CROWN_IMAGE}: clean {summary['clean_idx']} "
+        f"certified {summary['certified_idx']} (artifact {expect}) | "
+        f"{summary['cells_checked']:,} image-cells in {summary['seconds']:.1f} s | "
+        f"command {secs['18a']:.1f} s | launches {launches['18a']} | "
+        f"summarize-stream equal on {common}: "
+        f"{all(folded[k] == summary[k] for k in common)}")
+    if summary["clean_idx"] != [CLI_CROWN_IMAGE] or summary["certified_idx"] != expect:
+        raise RuntimeError(f"18a: certified {summary['certified_idx']}, artifact {expect}")
+    if summary["cells_checked"] != CERT_CELLS:
+        raise RuntimeError("18a: the sweep did not cover the grid")
+    if not (launches["18a"]["fused_rhs"] and launches["18a"]["fused_freq_apply"]):
+        raise RuntimeError(f"18a: the clean check missed K1 or K3: {launches['18a']}")
+    if any(folded[k] != summary[k] for k in common):
+        raise RuntimeError(f"18a: summarize-stream {folded} differs from {summary}")
+
+    # the in-process model, grid and images of 18b and 18g
+    model = certify_model(t_max=CERT_T_MAX, max_steps=CERT_MAX_STEPS, device=dev,
+                          checkpoint=CERT_DIR / "ckpt" / "best_torch.npz")
+    ds = load_dataset("CIFAR10", str(ROOT / "data"))
+    x = torch.from_numpy(ds.test_x).to(dev)
+    y = torch.from_numpy(ds.test_y).to(dev, torch.long)
+    grid = enumerate_decision_boundary(N_CLASSES, CERT_T)
+
+    # 18b: Lipschitz, held to the same sweep in this process and to the
+    # artifact (an image whose worst value lies within CERT_MARGIN of zero
+    # is held by its margin, as in phase 13)
+    lips_log = CLI_DIR / "lips.jsonl"
+    lo, hi = CLI_LIPS_IMAGES[0], CLI_LIPS_IMAGES[-1] + 1
+    r = run_cli("18b", ["certify-lipschitz", *certify_args, f"++start_ind={lo}",
+                        f"++end_ind={hi}", "--stream-out", str(lips_log)])
+    secs["18b"] = r["seconds"]
+    got = json.loads(Path(f"{lips_log}.json").read_text())
+    mine = Certifier(model, T=CERT_T, eps_input=CERT_EPS, chunk=CERT_CHUNK,
+                     grid=grid).certify(x[lo:hi], y[lo:hi], method="lipschitz")
+    art = json.loads((CERT_DIR / "lips_stream_full.jsonl.json").read_text())
+    for key, verdicts, worst in (
+            ("certified_idx", mine.certified, mine.worst),
+            ("larger_T_certified_idx", mine.larger_T_certified, mine.worst_larger_T)):
+        here = [lo + i for i, c in enumerate(verdicts) if c]
+        expect = [i for i in art[key] if lo <= i < hi]
+        log(f"[18b certify-lipschitz] {key}: CLI {got[key]} | in process {here} | "
+            f"artifact {expect} | worst " + " ".join(f"{w:+.4f}" for w in worst))
+        if got[key] != here:
+            raise RuntimeError(f"18b: the CLI's {key} {got[key]} is not {here}")
+        for i, w in zip(range(lo, hi), worst):
+            if (i in here) != (i in expect) and abs(w) > CERT_MARGIN:
+                raise RuntimeError(f"18b: image {i} (worst {w}) differs from the artifact")
+    log(f"[18b certify-lipschitz] command {secs['18b']:.1f} s")
+
+    # 18c: attacks at the attack protocol's t_max 0.1, max_steps 8; no
+    # certified image (every one but the open ones) may be broken
+    aa_out = CLI_DIR / "autoattack.json"
+    r = run_cli("18c", ["eval-autoattack", *certify_args, "--max-images",
+                        str(CLI_ATTACK_IMAGES), "--attacks", "apgd-ce,apgd-t",
+                        "--out", str(aa_out), f"++module.t_max={T_MAX}",
+                        f"++module.max_steps={MAX_STEPS}"])
+    secs["18c"], launches["18c"] = r["seconds"], r["launches"]
+    aa = json.loads(aa_out.read_text())
+    jax_fields = set(json.loads((CERT_DIR / "autoattack_full_standard_512_tmax01.json")
+                                .read_text()))
+    open_images = set(json.loads((CERT_DIR / "refine_accounting.json").read_text())
+                      ["open_images"])
+    broken = [i for i in range(CLI_ATTACK_IMAGES)
+              if i not in aa["robust_idx"] and i not in open_images]
+    log(f"[18c eval-autoattack] {aa['attacks']} on {aa['n_images']} images: robust "
+        f"{len(aa['robust_idx'])}/{aa['n_images']} in {aa['seconds']:.1f} s, max "
+        f"attempts {aa['max_attempts']} of {aa['max_steps']} | certified broken: "
+        f"{broken} | JAX artifact fields missing: {sorted(jax_fields - set(aa))} | "
+        f"command {secs['18c']:.1f} s | launches {launches['18c']}")
+    if broken or jax_fields - set(aa) or aa["n_images"] != CLI_ATTACK_IMAGES:
+        raise RuntimeError(f"18c: broken {broken}, missing {jax_fields - set(aa)}")
+    if min(launches["18c"].values()) == 0:
+        raise RuntimeError(f"18c: a kernel was not launched by the attacks: "
+                           f"{launches['18c']}")
+
+    # 18d: one epoch of cifar_train.yaml at full width on the synthetic set,
+    # then certify-lipschitz restoring the run's own best.npz
+    train_args = ["train", "--config-name", "cifar_train.yaml", "--epochs", "1"]
+    train_dir = CLI_DIR / "train"
+    r = run_cli("18d", [*train_args, "--run-dir", str(train_dir)])
+    secs["18d train"], launches["18d"] = r["seconds"], r["launches"]
+    missing = [f for f in ("metrics.jsonl", "ckpt/best.npz", "ckpt/resume.pt")
+               if not (train_dir / f).exists()]
+    r = run_cli("18d", ["certify-lipschitz", "--config-name", "cifar_certify.yaml",
+                        "--run-dir", str(train_dir), "++end_ind=2", "--stream-out",
+                        str(CLI_DIR / "train_lips.jsonl")])
+    secs["18d certify"] = r["seconds"]
+    restored = json.loads((CLI_DIR / "train_lips.jsonl.json").read_text())
+    log(f"[18d train] one epoch in {secs['18d train']:.1f} s (command) | missing "
+        f"{missing} | launches {launches['18d']} | certify-lipschitz of its best.npz: "
+        f"clean {restored['clean_idx']} certified {restored['certified_idx']} in "
+        f"{secs['18d certify']:.1f} s")
+    if missing or restored["n_images"] != 2:
+        raise RuntimeError(f"18d: missing {missing}, or no certificate of the run")
+    if not (launches["18d"]["fused_rhs"] and launches["18d"]["fused_freq_apply"]):
+        raise RuntimeError(f"18d: the run did not go through K1 and K3: {launches['18d']}")
+
+    # 18e: the same run under torch.distributed.run, one NCCL rank
+    ddp_dir = CLI_DIR / "train_ddp"
+    r = run_cli("18e", [*train_args, "--multihost", "--run-dir", str(ddp_dir)],
+                counted=False,
+                launcher=["torch.distributed.run", "--standalone", "--nproc_per_node=1"])
+    secs["18e"] = r["seconds"]
+    with np.load(train_dir / "ckpt" / "best.npz") as a, \
+            np.load(ddp_dir / "ckpt" / "best.npz") as b:
+        same_keys = sorted(a.files) == sorted(b.files)
+        diff = max(float(np.abs(a[k] - b[k]).max()) for k in a.files) if same_keys else math.inf
+    log(f"[18e multihost] one NCCL rank: best.npz max|d| against 18d {diff:.3e} "
+        f"({'bit-equal' if diff == 0 else 'not bit-equal'}) | "
+        f"'process 0/1' printed: {'[multihost] process 0/1' in r['stdout']} | "
+        f"command {secs['18e']:.1f} s")
+    if not (same_keys and diff <= 1e-6 and "[multihost] process 0/1" in r["stdout"]):
+        raise RuntimeError(f"18e: the one-rank run differs from 18d by {diff}")
+
+    # 18f: segway-certify at r = 0.01 with its figures
+    plot_dir = CLI_DIR / "segway_plots"
+    r = run_cli("18f", ["segway-certify", "--model",
+                        str((SEGWAY_DIR / "segway_f32.npz").relative_to(ROOT)),
+                        "--r", "0.01", "--plot-dir", str(plot_dir)], counted=False)
+    secs["18f"] = r["seconds"]
+    m = re.search(r"cells=(\d+) ub\.max=(\S+) exact\.max=(\S+) certified=(\w+)",
+                  r["stdout"])
+    want = json.loads((SEGWAY_DIR / "segway_f32.json").read_text())["certify"]["0.01"]
+    cells, ub = int(m.group(1)), float(m.group(2))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    figures = sorted(p.name for p in plot_dir.glob("*.png")) if plot_dir.exists() else []
+    near = []
+    if cells != want["n_cells"]:
+        from fiode_tpu_torch.control import load_segway
+        from fiode_tpu_torch.control.lyapunov_ctrl import LyaQuadratic
+        seg = load_segway(SEGWAY_DIR / "segway_f32.npz", dev)
+        near = near_edge_cells(LyaQuadratic(seg["P"], torch.zeros(1, 3, device=dev)),
+                               (want["level_lb"], want["level_ub"]), 0.01,
+                               (float(math.pi / 12), 1.5, 1.5))
+    log(f"[18f segway-certify] r=0.01: cells {cells} (JAX float32 {want['n_cells']}, "
+        f"states at a band edge {len(near) if near else 'not needed'}) ub.max "
+        f"{ub:+.5f} (JAX {want['ub_max']:+.5f}) certified {m.group(4)} (JAX "
+        f"{want['certified']}) | matplotlib {'is' if has_mpl else 'is not'} "
+        f"installed; figures written: {figures} | command {secs['18f']:.1f} s")
+    if (abs(cells - want["n_cells"]) > len(near) or m.group(4) != str(want["certified"])
+            or abs(ub - want["ub_max"]) > SEGWAY_VDOT_TOL):
+        raise RuntimeError("18f: the CLI's Segway certificate is not segway_f32.json's")
+    if has_mpl and figures != ["segway_traj3d.png", "segway_vdot_phase.png"]:
+        raise RuntimeError(f"18f: matplotlib is installed but the figures are {figures}")
+
+    # 18g: the Certifier on a mesh of the card: a 1-D mesh [cuda:0, cuda:0]
+    # over cells and a 1 x 1 ("img", "cell") mesh against the unsharded
+    # sweep: Lipschitz over the whole grid, CROWN over its first
+    # CLI_MESH_CROWN_CELLS cells
+    t0 = time.perf_counter()
+    lo, hi = CLI_MESH_IMAGES[0], CLI_MESH_IMAGES[-1] + 1
+    meshes = {"none": None, "cell [cuda:0] x 2": Mesh([dev, dev], ("cell",)),
+              "img x cell 1 x 1": Mesh([[dev]], ("img", "cell"))}
+    for method, g in (("lipschitz", grid), ("crown", grid[:CLI_MESH_CROWN_CELLS])):
+        res = {name: Certifier(model, T=CERT_T, eps_input=CERT_EPS, chunk=CERT_CHUNK,
+                               grid=g, mesh=mesh).certify(x[lo:hi], y[lo:hi],
+                                                          method=method,
+                                                          early_exit=False)
+               for name, mesh in meshes.items()}
+        base = res["none"]
+        for name, rr in res.items():
+            d = float(np.abs(rr.worst - base.worst).max())
+            same = (np.array_equal(rr.certified, base.certified)
+                    and np.array_equal(rr.larger_T_certified, base.larger_T_certified)
+                    and rr.cells_checked == base.cells_checked)
+            log(f"[18g mesh] {method} images {lo}-{hi - 1} over {len(g):,} cells, "
+                f"{name}: certified {rr.certified.tolist()} | worst "
+                + " ".join(f"{w:+.6f}" for w in rr.worst)
+                + f" | max|d worst| {d:.3e} | verdicts equal: {same}")
+            if not same:
+                raise RuntimeError(f"18g: {method} on {name} differs from the unsharded sweep")
+    secs["18g"] = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    log(f"[18 cli] phase 18 in {seconds:.1f} s | "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", choices=("all", "certify", "train", "control",
-                                         "ode", "attack"), default="all")
+                                         "ode", "attack", "cli"), default="all")
     phases = ap.parse_args().phases
     only_certify, only_train = phases == "certify", phases == "train"
     if not torch.cuda.is_available():
@@ -2240,7 +2520,7 @@ def main() -> None:
     # (n = 10) and phase 3's wide state (n = 100); one nvcc each, together
     builds = [lambda: load_library("fused_cayley_conv"),
               lambda: fused_rhs_module.build(N_CLASSES, MLP)]
-    if phases in ("all", "certify"):
+    if phases in ("all", "certify", "cli"):
         builds.append(lambda: load_cpp_library("grid_enum"))
     if phases == "all":
         builds.append(lambda: fused_rhs_module.build(WIDE_N, MLP))
@@ -2248,7 +2528,7 @@ def main() -> None:
         list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
     log(f"[2 build] K1 + K2 ({'two widths' if phases == 'all' else 'one width'}) + K3 "
-        f"{'+ grid_enum (g++) ' if phases in ('all', 'certify') else ''}built in {build_s:.1f} s "
+        f"{'+ grid_enum (g++) ' if phases in ('all', 'certify', 'cli') else ''}built in {build_s:.1f} s "
         f"into {BUILD_DIR}")
     # ptxas on every kernel; the main path's own (the flagship's K1, and its
     # K2 without weight gradients: every launch of phases 5, 9 and 10) may
@@ -2281,6 +2561,8 @@ def main() -> None:
             train_phase(dev)
         elif phases == "attack":
             attack_phase(dev)
+        elif phases == "cli":
+            cli_phase(dev)
         else:
             ode_phases(flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev), dev)
         log(smi)
@@ -2569,6 +2851,10 @@ def main() -> None:
 
     # 17. every solver, the adjoint, the cached twin, the legacy dynamics -------
     ode = ode_phases(model, dev)
+    torch.cuda.empty_cache()
+
+    # 18. the command line --------------------------------------------------------
+    cli = cli_phase(dev)
 
     by_phase = {name: {"5 forward solve": launches.get(name, 0),
                        "9 gradient through the solve": grad["launches"][name],
@@ -2578,7 +2864,10 @@ def main() -> None:
                        "13 certify lipschitz": cert["lipschitz"]["launches"][name],
                        "14 refine": cert["refine"]["launches"][name],
                        "15 train": train["launches"][name],
-                       "17 solvers and adjoint": ode["launches"][name]}
+                       "17 solvers and adjoint": ode["launches"][name],
+                       "18a certify-crown CLI": cli["launches"]["18a"][name],
+                       "18c eval-autoattack CLI": cli["launches"]["18c"][name],
+                       "18d train CLI": cli["launches"]["18d"][name]}
                 for name in attack["launches"]}
     for name in ("fused_rhs", "fused_freq_apply"):  # the certification paths' kernels
         if min(by_phase[name].values()) == 0:
@@ -2609,7 +2898,7 @@ def main() -> None:
          "bound_by": max(("bytes", "operations"), key=kf.get),
          "library_ms": kf["fft"]},
     ]
-    log(f"[done] phases 1-17 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

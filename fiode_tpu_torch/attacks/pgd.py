@@ -11,6 +11,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.multihost import shard_rows
+
 __all__ = ["pgd_attack", "pgd_random_start"]
 
 
@@ -35,14 +37,22 @@ def _project(x, x0, eps, norm):
 
 
 def pgd_random_start(x: torch.Tensor, eps: float, norm: str,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
+                     generator: Optional[torch.Generator],
+                     shard=None) -> torch.Tensor:
     """The random start's offset: uniform in the Linf box, or a uniform
-    direction times a uniform radius in [0, eps) for L2."""
+    direction times a uniform radius in [0, eps) for L2; with ``shard`` =
+    (i, p), x's rows of a global batch's draws (``shard_rows``)."""
+    def rows(m):
+        shape = (m,) + x.shape[1:]
+        if norm == "Linf":
+            return torch.rand(shape, generator=generator, device=x.device)
+        return (torch.randn(shape, generator=generator, device=x.device),
+                torch.rand((m,) + _bshape(x)[1:], generator=generator,
+                           device=x.device))
+
     if norm == "Linf":
-        u = torch.rand(x.shape, generator=generator, device=x.device)
-        return (2.0 * u - 1.0) * eps
-    d = torch.randn(x.shape, generator=generator, device=x.device)
-    r = torch.rand(_bshape(x), generator=generator, device=x.device)
+        return (2.0 * shard_rows(rows, len(x), shard) - 1.0) * eps
+    d, r = shard_rows(rows, len(x), shard)
     return _l2_normalize(d) * r * eps
 
 
@@ -51,18 +61,20 @@ def pgd_attack(loss_fn: Callable[[torch.Tensor], torch.Tensor],
                steps: int = 7, step_size: Optional[float] = None,
                rand_init: bool = True, clip_min: float = 0.0,
                clip_max: float = 1.0,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               shard=None) -> torch.Tensor:
     """Maximise ``sum(loss_fn(x_adv))`` over the eps-ball around x.
 
     loss_fn returns per-example losses (summed, so gradients stay per
-    example).  The random start draws from ``generator``.
+    example).  The random start draws from ``generator`` (x's rows of a
+    global batch's draws with ``shard``, see ``pgd_random_start``).
     """
     if step_size is None:
         step_size = 2.5 * eps / steps
     x = x.detach()
     xa = x
     if rand_init:
-        xa = torch.clamp(x + pgd_random_start(x, eps, norm, generator),
+        xa = torch.clamp(x + pgd_random_start(x, eps, norm, generator, shard),
                          clip_min, clip_max)
     for _ in range(steps):
         xg = xa.detach().requires_grad_()

@@ -121,11 +121,11 @@ def certify_segway(
     device="cuda",
 ) -> SegwayCertifyResult:
     """Certify the controller at ``model_path`` (or ``model``) on
-    ``device``; the cells are bounded ``chunk`` at a time."""
-    if plot_dir is not None:
-        raise NotImplementedError(
-            "plot_dir: the Segway figures (utils/plotting.py) come with "
-            "Slice F's port of the plotting module")
+    ``device``; the cells are bounded ``chunk`` at a time.  ``plot_dir``
+    gets ``segway_vdot_phase.png`` (Vdot contours, the level band and the
+    closed-loop streamlines on the v = 0 slice) and, with the simulated
+    trajectories, ``segway_traj3d.png``; without matplotlib it gets
+    nothing (``utils/plotting.HAVE_MATPLOTLIB``)."""
     device = torch.device(device)
     system = Segway()
     ctrl, P = _load(model_path, model, device)
@@ -159,7 +159,7 @@ def certify_segway(
             print(f"[certify_segway] cells={n_cells} ub.max={ub_max:.5f} "
                   f"exact.max={exact_max:.5f} certified={certified}")
 
-        drift = None
+        drift = traj = None
         if simulate_trajectories:
             gen = torch.Generator(device).manual_seed(0)
             x0 = random_uniform(sizes, 1000, generator=gen)
@@ -167,11 +167,15 @@ def certify_segway(
             if len(x0_in) > 0:
                 ts = np.linspace(0.0, 50.0, 200)
                 xs, _ = system.simulate(x0_in, ctrl, ts)
+                traj = xs
                 levels = lya(xs.reshape(-1, 3)).reshape(xs.shape[:2])
                 drift = float(levels.max() - level)
                 if verbose:
                     print(f"[certify_segway] {len(x0_in)} trajectories, "
                           f"max level drift above start: {drift:.4f}")
+    if plot_dir is not None:
+        _plot(plot_dir, system, ctrl, lya, eta, traj, level, level_lb,
+              level_ub, phi_region, region, device, verbose)
     return SegwayCertifyResult(
         ub_max=ub_max,
         certified=certified,
@@ -181,3 +185,30 @@ def certify_segway(
         level_ub=level_ub,
         traj_max_level_drift=drift,
     )
+
+
+def _plot(plot_dir, system, ctrl, lya, eta, traj, level, level_lb, level_ub,
+          phi_region, region, device, verbose):
+    """certify_segway's figures under ``plot_dir``."""
+    from pathlib import Path
+
+    from ..utils import plotting
+
+    if not plotting.HAVE_MATPLOTLIB:
+        if verbose:
+            print("[certify_segway] matplotlib is not installed: no figures")
+        return
+    pdir = Path(plot_dir)
+    pdir.mkdir(parents=True, exist_ok=True)
+    with float32_matmuls():
+        plotting.plot_segway_phase(
+            lya, lambda pts: lya.h_dot(pts, system(pts, ctrl(pts)))[:, 0],
+            phi_region=phi_region, region=region, level=level,
+            level_lb=level_lb, level_ub=level_ub,
+            f_fn=lambda pts: system(pts, ctrl(pts)),
+            save=str(pdir / "segway_vdot_phase.png"), device=device)
+    if traj is not None:
+        plotting.plot_segway_traj3d(traj, level_band_pts=eta,
+                                    save=str(pdir / "segway_traj3d.png"))
+    if verbose:
+        print(f"[certify_segway] plots written under {pdir}")

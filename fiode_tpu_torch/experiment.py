@@ -3,19 +3,22 @@
 ``build_model``, ``build_trainer`` and ``run_train`` take the composed config
 dict their JAX twins take (``utils/config.compose``) and train on the card
 unless given ``device="cpu"``; the model's weights are drawn from the
-config's seed on the CPU, then moved.  The other runners take a model and
-arrays (the JAX versions take a config and restore a checkpoint; here
-``entry.certify_model(checkpoint=...)`` builds the model).
+config's seed on the CPU, then moved.
 
-``run_sample_grid`` enumerates the decision-boundary grid and may save it;
-``run_certify`` sweeps it with the ``Certifier`` for the CROWN or the
-Lipschitz certificate, in one call or streamed in image batches with the
+Two forms of the other runners.  The model-and-array forms take a model and
+arrays: ``run_sample_grid`` enumerates the decision-boundary grid and may
+save it; ``run_certify`` sweeps it with the ``Certifier`` for the CROWN or
+the Lipschitz certificate, in one call or streamed in image batches with the
 JAX package's audit log, and may then branch-and-bound refine the clean but
-uncertified images (``verify/refine.py``, ``verify/refine_lips.py``).
-
+uncertified images (``verify/refine.py``, ``verify/refine_lips.py``);
 ``run_autoattack`` runs the AutoAttack suite over the arrays in batches and
 returns the fields of the JAX package's artifact
-(``run_data/certified_full/autoattack_*.json``).
+(``run_data/certified_full/autoattack_*.json``).  The config forms, which
+the CLI calls, are the JAX runners' counterparts: ``restore_model`` builds
+the config's model and loads a run directory's best parameters
+(``CheckpointManager.best_path``), ``run_certify_config``,
+``run_autoattack_config`` and ``run_sample_grid_config`` read every key the
+JAX runners read and call the array forms on the config's test set.
 
 Every forward the attacks make goes through ``BudgetedForward``, which
 records the largest number of solver steps attempted and raises if any
@@ -45,12 +48,17 @@ from .train.schedulers import (
     LinearScheduler,
     SwitchScheduler,
 )
+from .bridge import load_npz
+from .parallel.mesh import make_mesh, make_mesh2d
 from .train.trainer import LyapunovTrainer, TrainConfig, frozen
+from .utils.checkpoint import CheckpointManager
 from .verify.certify import Certifier, CertifyResult
 from .verify.grid import enumerate_decision_boundary
 
 __all__ = ["BudgetedForward", "build_model", "build_trainer", "run_train",
-           "run_autoattack", "run_certify", "run_sample_grid"]
+           "run_autoattack", "run_certify", "run_sample_grid",
+           "restore_model", "run_certify_config", "run_autoattack_config",
+           "run_sample_grid_config", "load_grid"]
 
 
 def _ordered_callbacks(cfg: dict, key: str):
@@ -199,15 +207,22 @@ def run_train(cfg: dict, run_dir: Optional[str] = None, epochs=None,
 def run_sample_grid(n: int = 10, T: int = 40,
                     out_path: Optional[str] = None) -> np.ndarray:
     """Enumerate the decision-boundary grid for n classes at resolution T,
-    float32 (cells, n); saved with ``numpy.save`` to ``out_path`` if given
-    (``run_certify`` takes the array back as ``grid``)."""
+    float32 (cells, n); written in numpy's ``.npy`` format to exactly
+    ``out_path`` if given (``load_grid`` reads it back)."""
     t0 = time.time()
     grid = enumerate_decision_boundary(n, T)
     print(f"grid n={n} T={T}: {grid.shape[0]:,} cells in "
           f"{time.time() - t0:.1f}s")
     if out_path:
-        np.save(out_path, grid)
+        # through a file handle: np.save appends ".npy" to a bare name
+        with open(out_path, "wb") as fh:
+            np.save(fh, grid)
     return grid
+
+
+def load_grid(path) -> np.ndarray:
+    """A grid that ``run_sample_grid`` wrote."""
+    return np.load(path, allow_pickle=False)
 
 
 def run_certify(model: NeuralODEClassifier, xs, ys, method: str = "crown", *,
@@ -220,7 +235,7 @@ def run_certify(model: NeuralODEClassifier, xs, ys, method: str = "crown", *,
                 refine_rounds: int = 0, refine_frontier_cap: int = 1 << 20,
                 refine_box_budget: int = 64_000_000,
                 refine_collect_cap: int = 4_000_000,
-                refine_alpha_iters: int = 0,
+                refine_alpha_iters: int = 0, mesh=None,
                 **certifier_kw) -> CertifyResult:
     """Certify the test images ``xs`` (N, C, H, W) in [0, 1] with labels
     ``ys`` from index ``start_ind`` on (at most ``max_images`` of them) on
@@ -230,8 +245,9 @@ def run_certify(model: NeuralODEClassifier, xs, ys, method: str = "crown", *,
     ``image_batch`` (or ``stream_out``, which implies batches of 10) the
     sweep is streamed: cumulative accuracies are printed after every batch
     and ``stream_out`` gets one JSON line per batch and a ``.json`` summary.
-    Further keywords go to the ``Certifier`` (``alpha_iters``,
-    ``alpha_objective``, ``with_upper``, ``std_min``).
+    ``mesh`` (``parallel/mesh.Mesh``) splits the sweep and the refinement
+    over its devices.  Further keywords go to the ``Certifier``
+    (``alpha_iters``, ``alpha_objective``, ``with_upper``, ``std_min``).
 
     ``refine_rounds`` > 0 then branch-and-bound refines the clean but
     uncertified images (at most that many rounds; ``refine_frontier_cap``,
@@ -246,7 +262,7 @@ def run_certify(model: NeuralODEClassifier, xs, ys, method: str = "crown", *,
     if scale_nominal is None:
         scale_nominal = model.dynamics.scale_nominal
     cert = Certifier(model, T=T, eps_input=eps, chunk=chunk, grid=grid,
-                     scale_nominal=scale_nominal, **certifier_kw)
+                     scale_nominal=scale_nominal, mesh=mesh, **certifier_kw)
     if stream_out and not image_batch:
         # a requested audit log implies the streamed sweep
         image_batch = 10
@@ -397,3 +413,108 @@ def run_autoattack(model: NeuralODEClassifier, xs: torch.Tensor,
         with open(out_path, "w") as fh:
             json.dump(summary, fh, indent=2)
     return summary, torch.cat(x_adv)
+
+
+# ---------------------------------------------------------------------------
+# the config forms, as the CLI calls them
+# ---------------------------------------------------------------------------
+
+
+def restore_model(cfg: dict, run_dir: str, device="cuda") -> NeuralODEClassifier:
+    """``build_model(cfg, device)`` with the run directory's best
+    parameters (``ckpt/best.npz``, else ``ckpt/best_torch.npz``), in eval
+    mode."""
+    model = build_model(cfg, device)
+    load_npz(model, CheckpointManager.best_path(run_dir))
+    return model.eval()
+
+
+def _mesh(cfg: dict, device):
+    """``mesh_shape``: a list [n_img, n_cell] is a 2-D mesh, an int a 1-D
+    mesh over cells, on the devices of ``device``'s type."""
+    ms = cfg.get("mesh_shape")
+    if not ms:
+        return None
+    kind = torch.device(device).type
+    if isinstance(ms, (list, tuple)):
+        return make_mesh2d(int(ms[0]), int(ms[1]), device_type=kind)
+    return make_mesh(int(ms), axis="cell", device_type=kind)
+
+
+def run_certify_config(cfg: dict, method: str = "crown", run_dir: str = ".",
+                       grid: Optional[np.ndarray] = None,
+                       max_images: Optional[int] = None,
+                       image_batch: Optional[int] = None,
+                       stream_out: Optional[str] = None,
+                       device="cuda") -> CertifyResult:
+    """Certify the config's test images [start_ind, end_ind) (end_ind -1:
+    all; at most ``max_images``) with the run directory's best parameters.
+    Reads ``T``, ``eps``, ``chunk``, ``module.dynamics.scale_nominal``,
+    ``load_grid`` / ``grid_name``, ``mesh_shape`` and the ``refine_*`` keys
+    as the JAX runner does; a config that sets ``matmul_precision`` is
+    refused (certificates are float32 here)."""
+    if "matmul_precision" in cfg:
+        raise ValueError(
+            "matmul_precision: this package certifies in float32 only "
+            f"(got {cfg['matmul_precision']!r}); drop the key")
+    model = restore_model(cfg, run_dir, device)
+    ds = _load_cfg_dataset(cfg)
+    if grid is None and cfg.get("load_grid"):
+        grid = load_grid(cfg["grid_name"])
+    start, end = int(cfg.get("start_ind", 0)), int(cfg.get("end_ind", -1))
+    if end == -1:
+        end = len(ds.test_x)
+    if max_images:
+        end = min(end, start + max_images)
+    return run_certify(
+        model, ds.test_x[:end], ds.test_y[:end], method,
+        T=int(cfg.get("T", 40)), eps=float(cfg.get("eps", 36 / 255)),
+        chunk=int(cfg.get("chunk", 8192)), grid=grid,
+        scale_nominal=bool(cfg["module"]["dynamics"]["scale_nominal"]),
+        start_ind=start, image_batch=image_batch, stream_out=stream_out,
+        refine_rounds=int(cfg.get("refine_rounds", 0)),
+        refine_frontier_cap=int(cfg.get("refine_frontier_cap", 1 << 20)),
+        refine_box_budget=int(cfg.get("refine_box_budget", 64_000_000)),
+        refine_collect_cap=int(cfg.get("refine_collect_cap", 4_000_000)),
+        refine_alpha_iters=int(cfg.get("refine_alpha_iters", 0)),
+        mesh=_mesh(cfg, device))
+
+
+def run_autoattack_config(cfg: dict, run_dir: str = ".", max_images=None,
+                          attacks: Sequence[str] = STANDARD,
+                          out_path: Optional[str] = None, device="cuda"):
+    """AutoAttack the config's first test images (at most ``max_images``)
+    with the run directory's best parameters, in batches of
+    ``val_batch_size``, at ``eps`` and ``norm`` ("2" or "L2": L2, else
+    Linf), ``attack_n_iter`` iterations and ``attack_square_queries``
+    Square queries; returns the robust accuracy.  ``out_path`` gets the
+    JAX package's artifact fields (``norm`` as the config spells it) and
+    this package's ``max_attempts``, ``forwards`` and ``attack_seconds``."""
+    model = restore_model(cfg, run_dir, device)
+    ds = _load_cfg_dataset(cfg)
+    xs, ys = ds.test_x, ds.test_y
+    if max_images:
+        xs, ys = xs[:max_images], ys[:max_images]
+    norm = str(cfg.get("norm", "2"))
+    summary, _ = run_autoattack(
+        model, torch.from_numpy(xs).to(device),
+        torch.from_numpy(ys).long().to(device),
+        eps=float(cfg.get("eps", 36 / 255)),
+        norm="L2" if norm in ("2", "L2") else "Linf", attacks=tuple(attacks),
+        n_iter=int(cfg.get("attack_n_iter", 100)),
+        square_queries=int(cfg.get("attack_square_queries", 5000)),
+        batch_size=int(cfg.get("val_batch_size", 512)))
+    summary["norm"] = norm
+    print(f"[autoattack] {summary['n_images']} imgs, robust acc "
+          f"{summary['robust_acc']:.4f} "
+          f"({summary['images_per_sec']:.2f} img/s)")
+    if out_path:
+        with open(out_path, "w") as fh:
+            json.dump(summary, fh, indent=2)
+    return summary["robust_acc"]
+
+
+def run_sample_grid_config(cfg: dict, out_path: Optional[str] = None):
+    """The grid of the config's ``dataset.N_CLASSES`` and ``T``."""
+    return run_sample_grid(int(cfg["dataset"]["N_CLASSES"]),
+                           int(cfg.get("T", 40)), out_path)

@@ -11,7 +11,9 @@ or LipsLinear.  Dropout acts inside the raw MLP only when the caller passes
 ``train=True``, as in the JAX package, never because of the module's
 training mode; its mask is drawn from the caller's ``torch.Generator`` (on
 the activations' device), kept with probability 1 - dropout and scaled by
-1 / (1 - dropout), as flax's ``nn.Dropout`` does.  ``kappa`` and
+1 / (1 - dropout), as flax's ``nn.Dropout`` does; with ``shard`` = (i, p)
+the rows are part i of p equal parts of a global batch and the masks are
+the global batch's rows of that part (``parallel.multihost.shard_rows``).  ``kappa`` and
 ``kappa_length`` are the Lyapunov training's decay rate and its annealing
 length in steps; the RHS does not read them.
 """
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.cayley import groupsort2
+from ..parallel.multihost import shard_rows
 from ..ops.simplex_qp import simplex_cone_project
 from .layers import CayleyLinear, LipsLinear
 
@@ -72,29 +75,33 @@ class SimplexDynamics(nn.Module):
     def _act(self, z):
         return groupsort2(z) if self.activation == "GroupSort" else torch.relu(z)
 
-    def _drop(self, z, train: bool, generator: Optional[torch.Generator]):
+    def _drop(self, z, train: bool, generator: Optional[torch.Generator],
+              shard=None):
         if not train or self.dropout == 0.0:
             return z
         keep = 1.0 - self.dropout
-        mask = torch.rand(z.shape, generator=generator, device=z.device) < keep
-        return torch.where(mask, z / keep, torch.zeros((), device=z.device))
+        u = shard_rows(lambda m: torch.rand((m,) + z.shape[1:],
+                                            generator=generator,
+                                            device=z.device), len(z), shard)
+        return torch.where(u < keep, z / keep, torch.zeros((), device=z.device))
 
     def raw(self, h, x, *, train: bool = False,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, shard=None):
         """The unprojected f~; dropout acts only with ``train``, its masks
-        drawn from ``generator``."""
+        drawn from ``generator`` (for the part ``shard`` of a global
+        batch)."""
         z = self.hidden_to_mlp(h) + self.U_x(x)
-        z = self._act(self._drop(z, train, generator))
+        z = self._act(self._drop(z, train, generator, shard))
         z = self.mlp_to_mlp(z)
-        z = self._act(self._drop(z, train, generator))
+        z = self._act(self._drop(z, train, generator, shard))
         return self.mlp_to_hidden(z)
 
     def eval_dot(self, h, x, *, train: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 scale_nominal: Optional[bool] = None):
+                 scale_nominal: Optional[bool] = None, shard=None):
         """The projected dynamics f(h, x); ``scale_nominal`` overrides the
         module's own flag."""
-        f_tilde = self.raw(h, x, train=train, generator=generator)
+        f_tilde = self.raw(h, x, train=train, generator=generator, shard=shard)
         lower, upper = barrier_bounds(h, self.alpha_1, self.sigma_1,
                                       self.alpha_2)
         sn = self.scale_nominal if scale_nominal is None else scale_nominal

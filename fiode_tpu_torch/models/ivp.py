@@ -117,12 +117,13 @@ class NeuralODEClassifier(nn.Module):
 
     def eval_dot(self, h, x_feat, *, train: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 scale_nominal: Optional[bool] = None):
+                 scale_nominal: Optional[bool] = None, shard=None):
         """f(h, x_feat) in plain PyTorch: with ``train`` the dropout masks
-        are drawn from ``generator`` (no kernel takes a mask)."""
+        are drawn from ``generator`` (no kernel takes a mask), for the part
+        ``shard`` = (i, p) of a global batch when given."""
         return self.dynamics.eval_dot(h, x_feat, train=train,
                                       generator=generator,
-                                      scale_nominal=scale_nominal)
+                                      scale_nominal=scale_nominal, shard=shard)
 
     def raw_dot(self, h, x_feat, *, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -183,7 +184,8 @@ class NeuralODEClassifier(nn.Module):
               method: Optional[str] = None, step_size: Optional[float] = None,
               rtol: Optional[float] = None, atol: Optional[float] = None,
               use_adjoint: bool = False,
-              adjoint_stats: Optional[dict] = None) -> OdeSolution:
+              adjoint_stats: Optional[dict] = None,
+              process_group=None) -> OdeSolution:
         """Integrate from h0 and return the OdeSolution over ``ts``
         (default [0, t_max]); ``attempts`` on it counts the steps tried,
         which reach ``max_steps`` when the budget ran out.
@@ -193,7 +195,9 @@ class NeuralODEClassifier(nn.Module):
         needs ``step_size``.
         ``use_adjoint`` differentiates by the continuous adjoint;
         ``adjoint_stats`` (a dict) then receives its counts
-        (``odeint_adjoint``'s ``stats``)."""
+        (``odeint_adjoint``'s ``stats``).  ``process_group``: x is this
+        process's rows of a batch spread over the group, whose adaptive
+        step control is the whole batch's (``odeint``)."""
         dyn = self.dynamics
         feats = self.features(x)
         sn = dyn.scale_nominal if scale_nominal is None else scale_nominal
@@ -207,6 +211,8 @@ class NeuralODEClassifier(nn.Module):
         h0 = self.h0(x.shape[0], x.device)
         consts = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, sn, dyn.qp_iters)
         if use_adjoint:
+            if process_group is not None:
+                raise ValueError("the adjoint solve takes no process_group")
             stats = {} if adjoint_stats is None else adjoint_stats
             if dyn.activation == "ReLU":
                 ys = self._adjoint_fused(feats, h0, ts, consts, solver, stats)
@@ -222,7 +228,7 @@ class NeuralODEClassifier(nn.Module):
         else:
             def f(t, h):
                 return dyn.eval_dot(h, feats, train=False, scale_nominal=sn)
-        return odeint(f, h0, ts, **solver)
+        return odeint(f, h0, ts, process_group=process_group, **solver)
 
     def predict(self, x, **kw):
         """The outputs at t_max; ``kw`` go to ``solve``."""

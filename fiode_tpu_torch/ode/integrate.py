@@ -42,6 +42,14 @@ none detached, so the gradient is the one ``jax.grad`` takes through the
 JAX package's bounded ``scan`` mode (its masked trips past t_max contribute
 nothing).  There is no scan mode here: the loop attempts only the steps it
 needs.
+
+With ``process_group`` (a ``torch.distributed`` group) the state is this
+process's rows of a batch spread over the group's processes, and every RMS
+of the adaptive step control (the error ratio, the first-step heuristic,
+DOP853's d5 / d3) is taken over the whole batch: the sums of squares and
+counts are all-reduced (``parallel.multihost.all_reduce_sum``, whose
+backward all-reduces the gradient), so every process takes the
+one-process solve's steps and the gradients through them.
 """
 from __future__ import annotations
 
@@ -72,25 +80,38 @@ class OdeSolution(NamedTuple):
         return self.n_accepted + self.n_rejected
 
 
-def _rms(r: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _rms(r: torch.Tensor, weight: Optional[torch.Tensor] = None,
+         group=None) -> torch.Tensor:
+    if group is not None:
+        return _group_rms(r, weight, group)
     if weight is None:
         return torch.sqrt(torch.mean(r * r))
     w = weight.to(r.dtype)
     return torch.sqrt(torch.sum(w * r * r) / torch.clamp_min(torch.sum(w), 1.0))
 
 
-def rms_error_ratio(err, rtol, atol, y0, y1, weight=None):
-    """rms(err / (atol + rtol * max(|y0|, |y1|))) over the whole state, or
-    over the entries where ``weight`` is 1."""
+def _group_rms(r, weight, group):
+    """The RMS over the rows of every process of ``group``."""
+    from ..parallel.multihost import all_reduce_sum
+    w = torch.ones_like(r) if weight is None else weight.to(r.dtype)
+    sq, n = all_reduce_sum(torch.stack([torch.sum(w * r * r), torch.sum(w)]),
+                           group)
+    return torch.sqrt(sq / torch.clamp_min(n, 1.0))
+
+
+def rms_error_ratio(err, rtol, atol, y0, y1, weight=None, group=None):
+    """rms(err / (atol + rtol * max(|y0|, |y1|))) over the whole state (of
+    every process of ``group``), or over the entries where ``weight`` is
+    1."""
     scale = atol + rtol * torch.maximum(y0.abs(), y1.abs())
-    return _rms(err / scale, weight)
+    return _rms(err / scale, weight, group)
 
 
 def _const(v, y):
     return torch.as_tensor(v, dtype=y.dtype, device=y.device)
 
 
-def _rk_step(tab: Tableau, f, t0, y0, f0, h):
+def _rk_step(tab: Tableau, f, t0, y0, f0, h, group=None):
     """One explicit RK step: (y1, the last stage's slope (f(t1, y1) for an
     FSAL method), the error estimate or None)."""
     c, a, b = (_const(v, y0) for v in (tab.c, tab.a, tab.b))
@@ -106,7 +127,7 @@ def _rk_step(tab: Tableau, f, t0, y0, f0, h):
     if tab.dop853_err:
         err5 = h * torch.tensordot(_const(tab.err5, y0), k, dims=1)
         err3 = h * torch.tensordot(_const(tab.err3, y0), k, dims=1)
-        d5, d3 = _rms(err5), _rms(err3)
+        d5, d3 = _rms(err5, group=group), _rms(err3, group=group)
         denom = torch.sqrt(d5 * d5 + 0.01 * d3 * d3)
         err = err5 * (d5 / torch.clamp_min(denom, 1e-30))
     elif tab.err is not None:
@@ -116,14 +137,14 @@ def _rk_step(tab: Tableau, f, t0, y0, f0, h):
     return y1, ks[-1], err
 
 
-def _initial_step(f, t0, y0, f0, order, rtol, atol, weight=None):
+def _initial_step(f, t0, y0, f0, order, rtol, atol, weight=None, group=None):
     """Hairer/Wanner first-step heuristic (torchdiffeq _select_initial_step)."""
     scale = atol + y0.abs() * rtol
-    d0 = _rms(y0 / scale, weight)
-    d1 = _rms(f0 / scale, weight)
+    d0 = _rms(y0 / scale, weight, group)
+    d1 = _rms(f0 / scale, weight, group)
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6, 0.01 * d0 / d1)
     f1 = f(t0 + h0, y0 + h0 * f0)
-    d2 = _rms((f1 - f0) / scale, weight) / h0
+    d2 = _rms((f1 - f0) / scale, weight, group) / h0
     dmax = torch.maximum(d1, d2)
     h1 = torch.where(
         dmax <= 1e-15,
@@ -160,19 +181,20 @@ def _hermite(t, t0, y0, f0, t1, y1, f1):
 
 
 def _adaptive(tab: Tableau, f, y0, ts, ts_host, rtol, atol, max_steps,
-              error_weight):
+              error_weight, group=None):
     n_out = len(ts_host)
     t = ts[0]
     t_final = ts[-1]
     fval = f(t, y0)
-    h = _initial_step(f, t, y0, fval, tab.order, rtol, atol, error_weight)
+    h = _initial_step(f, t, y0, fval, tab.order, rtol, atol, error_weight,
+                      group)
     y = y0
     ys = [y0] + [None] * (n_out - 1)
     out_idx, nfe, n_acc, n_rej = 1, 2, 0, 0
     while out_idx < n_out and n_acc + n_rej < max_steps:
         h = torch.minimum(h, t_final - t)
-        y1, f1, err = _rk_step(tab, f, t, y, fval, h)
-        ratio = rms_error_ratio(err, rtol, atol, y, y1, error_weight)
+        y1, f1, err = _rk_step(tab, f, t, y, fval, h, group)
+        ratio = rms_error_ratio(err, rtol, atol, y, y1, error_weight, group)
         t1 = t + h
         # the one host read of the step
         ratio_host, t1_host = torch.stack([ratio, t1]).tolist()
@@ -259,7 +281,8 @@ def _scipy(f, y0, ts_host, rtol, atol):
 def odeint(f: Callable, y0: torch.Tensor, ts, *, method: str = "dopri5",
            rtol: float = 1e-3, atol: float = 1e-3,
            step_size: Optional[float] = None, max_steps: int = 512,
-           error_weight: Optional[torch.Tensor] = None) -> OdeSolution:
+           error_weight: Optional[torch.Tensor] = None,
+           process_group=None) -> OdeSolution:
     """Integrate dy/dt = f(t, y) and report y at each time in ``ts``.
 
     ``ts`` is 1-D and increasing; ts[0] is the initial time.  ``method`` is
@@ -269,14 +292,20 @@ def odeint(f: Callable, y0: torch.Tensor, ts, *, method: str = "dopri5",
     to the last state (the JAX while mode's partial solution), and
     ``attempts == max_steps`` tells the caller so.  ``error_weight`` (0 / 1,
     y0's shape) restricts the adaptive error norm to a sub-state.
+    ``process_group``: y0 is this process's rows of a batch spread over the
+    group, and the adaptive error norms are the whole batch's (module
+    docstring); ``scipy_solver`` refuses it.
     """
     ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
     ts_host = ts.tolist()  # float32 values, exact as Python floats
     if method == "scipy_solver":
+        if process_group is not None:
+            raise ValueError("scipy_solver's step control is per process: "
+                             "it takes no process_group")
         return _scipy(f, y0, ts_host, rtol, atol)
     if method in FIXED_SOLVERS:
         if step_size is None:
             raise ValueError(f"fixed-step method {method!r} needs step_size")
         return _fixed(method, f, y0, ts, ts_host, step_size)
     return _adaptive(get_tableau(method), f, y0, ts, ts_host, rtol, atol,
-                     max_steps, error_weight)
+                     max_steps, error_weight, process_group)

@@ -122,14 +122,16 @@ def decision_boundary(y, n, S, zs, **_):
                        torch.take_along_dim(raw[..., 1:], idx_wrong, dim=-1))
 
 
-def trajectory_sampler(y, n, S, *, model=None, x=None, **_):
+def trajectory_sampler(y, n, S, *, model=None, x=None, process_group=None,
+                       **_):
     """The states of the batch's solved trajectory at S evenly spaced times
     in [0, t_max] (no gradient; the port's output map is the identity, so
-    these are the hidden states the JAX sampler takes)."""
+    these are the hidden states the JAX sampler takes); ``process_group``
+    goes to the solve."""
     if model is None or x is None:
         raise ValueError("TrajectorySampler needs the model and the batch x")
     with torch.no_grad():
-        return model.trajectory(x, S).transpose(0, 1)
+        return model.trajectory(x, S, process_group=process_group).transpose(0, 1)
 
 
 SAMPLERS: Dict[str, Callable] = {

@@ -11,6 +11,11 @@
   * ``resume.pt`` / ``resume.json``: the whole training state (module state,
     optimizer state, generator states, step and epoch) written with
     ``torch.save`` and read back with ``weights_only=True``.
+
+``CheckpointManager.best_path(run_dir)`` is where a run directory's best
+parameters are read from: ``ckpt/best.npz`` (this package's), else
+``ckpt/best_torch.npz`` (a JAX checkpoint exported by
+``tools/export_torch_checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +28,10 @@ from torch import nn
 
 from ..bridge import load_npz, save_npz
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "BEST_FILES"]
+
+# the files a run directory's best parameters are read from, in order
+BEST_FILES = ("best.npz", "best_torch.npz")
 
 
 class CheckpointManager:
@@ -40,6 +48,18 @@ class CheckpointManager:
                 self.best = float(json.loads(best_json.read_text())[monitor])
             except (KeyError, ValueError):
                 pass
+
+    @staticmethod
+    def best_path(run_dir) -> Path:
+        """The first of ``BEST_FILES`` under ``run_dir/ckpt``; raises
+        ``FileNotFoundError`` naming both when neither exists."""
+        paths = [Path(run_dir) / "ckpt" / f for f in BEST_FILES]
+        for p in paths:
+            if p.exists():
+                return p
+        raise FileNotFoundError(
+            "no best checkpoint: neither " + " nor ".join(map(str, paths))
+            + " exists")
 
     def path(self, name: str) -> Path:
         """The parameter file of checkpoint ``name`` ("best" or "last")."""

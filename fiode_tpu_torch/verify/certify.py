@@ -1,6 +1,5 @@
 """Certification sweeps: CROWN and Lipschitz certificates over the
-decision-boundary grid (counterpart of ``fiode_tpu/verify/certify.py``, on
-one device).
+decision-boundary grid (counterpart of ``fiode_tpu/verify/certify.py``).
 
 All clean-correct images are swept together.  One block is all images x K
 chunks of cells: the image axis is a leading batch axis of the same
@@ -24,12 +23,21 @@ CUDA device and runs ``rhs_reference`` on the CPU, as the solve does; for
 GroupSort dynamics the dynamics' own ``eval_dot``.  CROWN's products are ``torch.matmul`` / ``einsum`` and
 the interval QP is plain elementwise PyTorch.
 
+With a ``mesh`` (``parallel/mesh.Mesh``) each block is split by the JAX
+package's placement rules: a 1-D mesh of any axis name splits the cells of
+every chunk; a 2-D mesh splits the images over its "img" axis (padded to a
+multiple of its size) and the cells over its "cell" axis.  Each shard runs
+on its own device (``Certifier.on``: the model and weights copied there
+once) and its per-image worst values are reduced on the model's device, so
+a sharded sweep gives the unsharded verdicts.
+
 Certificates are float32: every sweep runs with TF32 switched off, whatever
 the process-wide setting, and restores the setting afterwards.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -196,9 +204,48 @@ def label_perms(labels: torch.Tensor, n: int) -> torch.Tensor:
     return perms
 
 
+def shard_devices(mesh, device) -> np.ndarray:
+    """The (image shards, cell shards) array of devices a sweep runs on:
+    ``[[device]]`` without a mesh; a 1-D mesh of any name splits cells
+    only; a mesh of more axes splits images over "img" and cells over
+    "cell" where it has them and uses the first device along any other
+    axis (the JAX package replicates over it)."""
+    if mesh is None:
+        return np.array([[device]], dtype=object)
+    names = mesh.axis_names
+    devs = mesh.devices
+    if len(names) == 1:
+        return devs.reshape(1, -1)
+    kept = [a for a in names if a in ("img", "cell")]
+    sub = devs[tuple(slice(None) if a in kept else 0 for a in names)]
+    if kept == ["cell", "img"]:
+        sub = sub.T
+    if "img" not in kept:
+        sub = sub.reshape(1, -1)
+    elif "cell" not in kept:
+        sub = sub.reshape(-1, 1)
+    return sub
+
+
+def _max_merge(out, rows, part):
+    """Fold a shard's running maxima into ``out`` at ``rows``."""
+    for o, w in zip(out, part):
+        o[rows] = torch.maximum(o[rows], w)
+
+
+def _argmax_merge(out, rows, part):
+    """Fold a shard's (values, cell indices) into ``out`` at ``rows``: the
+    larger value, ties to the smaller index (the unsharded sweep's order)."""
+    (wv, wi), (v, i) = out, part
+    cv, ci = wv[rows], wi[rows]
+    better = (v > cv) | ((v == cv) & (i < ci))
+    wv[rows] = torch.where(better, v, cv)
+    wi[rows] = torch.where(better, i, ci)
+
+
 class Certifier:
     """Sweeps the decision-boundary grid for a ``NeuralODEClassifier`` on the
-    device the model lies on.
+    device the model lies on, or split over the devices of ``mesh``.
 
     ``alpha_iters`` > 0 tightens the ReLU lower slopes per chunk
     (alpha-CROWN; 0 is plain CROWN).  ``alpha_objective`` picks what the
@@ -216,9 +263,11 @@ class Certifier:
                  chunk: int = 8192, scale_nominal: bool = False,
                  with_upper: bool = False, grid: Optional[np.ndarray] = None,
                  std_min: Optional[float] = None, alpha_iters: int = 0,
-                 alpha_objective: str = "vdot"):
+                 alpha_objective: str = "vdot", mesh=None):
         self.model = model
         self.device = next(model.parameters()).device
+        self.mesh = mesh
+        self._replicas = {}
         self.T = T
         self.eps = 1.0 / T  # per-cell Linf radius
         self.chunk = chunk
@@ -259,6 +308,31 @@ class Certifier:
         if len(self.grid) == 0:
             raise ValueError("Certifier needs a non-empty decision-boundary grid")
         self._grid_dev: Optional[torch.Tensor] = None
+
+    # -- devices -------------------------------------------------------------
+
+    def on(self, device) -> "Certifier":
+        """This certifier with its model and weights on ``device``: itself
+        where it lies there, else a copy made once and kept."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        key = str(device)
+        if key not in self._replicas:
+            rep = copy.copy(self)
+            rep.model = copy.deepcopy(self.model).to(device)
+            rep.device = next(rep.model.parameters()).device
+            rep.Ws = [w.to(device) for w in self.Ws]
+            rep.bs = [b.to(device) for b in self.bs]
+            rep.U, rep.bU = self.U.to(device), self.bU.to(device)
+            rep.mesh, rep._replicas, rep._grid_dev = None, {}, None
+            self._replicas[key] = rep
+        return self._replicas[key]
+
+    def cell_devices(self) -> list:
+        """The devices the rows of a block are split over (refinement's
+        rule: the mesh's cell axis; the first image shard's)."""
+        return list(shard_devices(self.mesh, self.device)[0])
 
     # -- clean check ---------------------------------------------------------
 
@@ -366,20 +440,31 @@ class Certifier:
         f_w = torch.where(runner, f, neg_inf).amax(-1)
         return -f_y + f_w, eta_l
 
-    def rhs_rows(self, feats, C):
-        """The exact field's inputs for I images x C cells each: for ReLU
-        dynamics the packed K1 weights and the injection xc = x U^T + bU + b1
-        repeated per cell; for GroupSort dynamics no weights (None) and the
-        features repeated per cell."""
-        if self.model.dynamics.activation == "ReLU":
-            W1, W2, W3 = self.Ws
-            b1, b2, b3 = self.bs
-            p = pack_rhs_params(W1, W2, W3, b2, b3)
-            rows = feats @ self.U.T + self.bU + b1  # (I, mlp)
-        else:
-            p, rows = None, feats
+    def field_params(self):
+        """The exact field's weights: K1's packed weights for ReLU dynamics,
+        None for GroupSort."""
+        if self.model.dynamics.activation != "ReLU":
+            return None
+        W1, W2, W3 = self.Ws
+        return pack_rhs_params(W1, W2, W3, self.bs[1], self.bs[2])
+
+    def field_inputs(self, feats):
+        """The exact field's per-image input: for ReLU dynamics the
+        injection xc = x U^T + bU + b1, for GroupSort the features."""
+        if self.model.dynamics.activation != "ReLU":
+            return feats
+        return feats @ self.U.T + self.bU + self.bs[0]
+
+    @staticmethod
+    def per_cell(rows, C):
+        """(I, d) per-image rows -> (I C, d), each repeated for C cells."""
         I = rows.shape[0]
-        return p, rows[:, None, :].expand(I, C, -1).reshape(I * C, -1).contiguous()
+        return rows[:, None, :].expand(I, C, -1).reshape(I * C, -1).contiguous()
+
+    def rhs_rows(self, feats, C):
+        """The exact field's inputs for I images x C cells each:
+        ``field_params()`` and ``field_inputs`` repeated per cell."""
+        return self.field_params(), self.per_cell(self.field_inputs(feats), C)
 
     def exact_field(self, p, in_rows, h):
         """The projected dynamics at the states h (R, n), with ``p`` and the
@@ -412,22 +497,80 @@ class Certifier:
         return wf, wl
 
     def witness_block(self, p, xc_rows, labels, perms, etas, valids, carry,
-                      base_idx: int):
+                      base_idx: int, stride: Optional[int] = None):
         """One block of the exact sweep with its argmax: ``carry`` is
-        (values (I,), cell indices (I,))."""
+        (values (I,), cell indices (I,)); chunk k's cell j has the index
+        ``base_idx + k stride + j`` (``stride``: the chunk, by default
+        ``etas.shape[1]``).  Ties keep the smaller index."""
         n = self.n
         onehot = (labels[:, None] == torch.arange(n, device=labels.device))[:, None, :]
         wv, wi = carry
-        C = etas.shape[1]
+        stride = etas.shape[1] if stride is None else stride
         for k in range(etas.shape[0]):
             vdot, _ = self._exact_vdot(p, xc_rows, perms, onehot, etas[k])
             v = torch.where(valids[k], vdot + self.kappa_lips, float("-inf"))
             vmax, j = v.max(dim=1)
-            idx = base_idx + k * C + j
+            idx = base_idx + k * stride + j
             better = vmax > wv
             wv = torch.where(better, vmax, wv)
             wi = torch.where(better, idx, wi)
         return wv, wi
+
+    # -- sharding -------------------------------------------------------------
+
+    def _shards(self, n_imgs: int, chunk: int):
+        """How a block of ``n_imgs`` images x ``chunk`` cells a chunk splits:
+        (padded image count, [(image rows, chunk columns, certifier)]).  The
+        image axis is padded to a multiple of the image shards."""
+        grid = shard_devices(self.mesh, self.device)
+        n_img, n_cell = grid.shape
+        padded = -(-n_imgs // n_img) * n_img
+        per = padded // n_img
+        cols = np.array_split(np.arange(chunk), n_cell)
+        return padded, [
+            (slice(a * per, (a + 1) * per),
+             slice(int(c[0]), int(c[-1]) + 1) if len(c) else slice(0, 0),
+             self.on(grid[a, b]))
+            for a in range(n_img) for b, c in enumerate(cols)]
+
+    def _block_step(self, method, inputs, labels, perms, C):
+        """The function (etas, valids, worst) -> worst of one shard's part
+        of every block, on this certifier's device: the shard's images
+        (per-image ``inputs``: CROWN's x U^T + bU or ``field_inputs``;
+        ``labels``, ``perms``; moved here) against C cells a chunk;
+        ``worst`` is a tuple, (w,) for crown, (with slack, without) for
+        lipschitz."""
+        inputs, labels, perms = (t.to(self.device)
+                                 for t in (inputs, labels, perms))
+        if method == "crown":
+            def step(etas, valids, worst):
+                return (self.crown_block(inputs, labels, perms, etas, valids,
+                                         worst[0]),)
+        else:
+            p, xc_rows = self.field_params(), self.per_cell(inputs, C)
+
+            def step(etas, valids, worst):
+                return self.lips_block(p, xc_rows, labels, perms, etas, valids,
+                                       worst)
+        return step
+
+    def _sharded(self, shards, steps, etas, valids, carry, *extra,
+                 merge=_max_merge):
+        """One block over the shards: ``steps[i](etas, valids, carry,
+        *extra)`` runs shard i's part (its chunk columns, its image rows of
+        the tuple ``carry``) on its device; ``merge`` folds each result
+        into the carry on this certifier's device."""
+        if len(shards) == 1 and shards[0][2] is self:
+            return steps[0](etas, valids, carry, *extra)
+        out = [c.clone() for c in carry]
+        for (rows, cols, rep), step in zip(shards, steps):
+            if cols.stop == cols.start:
+                continue
+            dev = rep.device
+            part = step(etas[:, cols].to(dev), valids[:, cols].to(dev),
+                        tuple(c[rows].to(dev) for c in carry), *extra)
+            merge(out, rows, tuple(t.to(self.device) for t in part))
+        return tuple(out)
 
     # -- sweeps ---------------------------------------------------------------
 
@@ -452,17 +595,41 @@ class Certifier:
             x, y = self._to_device(images, labels)
             clean = (self._predict(x) == y).cpu().numpy()
             feats = self.model.features(x)
-            n_imgs = len(x)
-            perms = label_perms(y, self.n)
-            p, xc_rows = self.rhs_rows(feats, self.chunk)
-            carry = (torch.full((n_imgs,), float("-inf"), device=self.device),
-                     torch.zeros(n_imgs, dtype=torch.long, device=self.device))
+            n_imgs, C = len(x), self.chunk
+            padded, shards = self._shards(n_imgs, C)
+            sel = torch.cat([torch.arange(n_imgs, device=self.device),
+                             torch.zeros(padded - n_imgs, dtype=torch.long,
+                                         device=self.device)])
+            labs, feats = y[sel], feats[sel]
+            perms = label_perms(labs, self.n)
+            inputs = self.field_inputs(feats)
+            steps = [rep._witness_step(inputs[rows], labs[rows], perms[rows],
+                                       cols, C)
+                     for rows, cols, rep in shards]
+            wv = torch.full((padded,), float("-inf"), device=self.device)
+            wi = torch.zeros(padded, dtype=torch.long, device=self.device)
             base = 0
             for etas, valids, _ in self.iter_blocks():
-                carry = self.witness_block(p, xc_rows, y, perms, etas, valids,
-                                           carry, base)
-                base += etas.shape[0] * etas.shape[1]
-            return carry[0].cpu().numpy(), carry[1].cpu().numpy(), clean
+                wv, wi = self._sharded(shards, steps, etas, valids, (wv, wi),
+                                       base, merge=_argmax_merge)
+                base += etas.shape[0] * C
+            return (wv[:n_imgs].cpu().numpy(), wi[:n_imgs].cpu().numpy(),
+                    clean)
+
+    def _witness_step(self, inputs, labels, perms, cols, C):
+        """The function (etas, valids, carry, base) -> carry of one shard's
+        part of every witness block: its images (``field_inputs`` rows)
+        against the chunk columns ``cols`` of C, indexed into the whole
+        grid."""
+        inputs, labels, perms = (t.to(self.device)
+                                 for t in (inputs, labels, perms))
+        p = self.field_params()
+        xc_rows = self.per_cell(inputs, cols.stop - cols.start)
+
+        def step(etas, valids, carry, base):
+            return self.witness_block(p, xc_rows, labels, perms, etas, valids,
+                                      carry, base + cols.start, C)
+        return step
 
     @torch.no_grad()
     def certify(self, images, labels, method: str = "crown",
@@ -500,34 +667,34 @@ class Certifier:
         clean_idx = np.nonzero(clean)[0]
         I = len(clean_idx)
         if I:
-            sel = torch.from_numpy(clean_idx).to(self.device)
+            padded, shards = self._shards(I, self.chunk)
+            # padded image rows repeat the first and start at +inf: they
+            # read as violated and are sliced off before the verdicts
+            sel = torch.from_numpy(np.concatenate(
+                [clean_idx, np.repeat(clean_idx[:1], padded - I)])).to(self.device)
             labs = y[sel]
             perms = label_perms(labs, self.n)
             feats = all_feats[sel]
-            start = torch.full((I,), float("-inf"), device=self.device)
+            start = torch.cat([
+                torch.full((I,), float("-inf"), device=self.device),
+                torch.full((padded - I,), float("inf"), device=self.device)])
             n_blocks = 0
+            # the per-image inputs once for all images, then split
+            inputs = (feats @ self.U.T + self.bU if method == "crown"
+                      else self.field_inputs(feats))
+            steps = [rep._block_step(method, inputs[rows], labs[rows],
+                                     perms[rows], cols.stop - cols.start)
+                     for rows, cols, rep in shards]
             if method == "crown":
-                x_biases = feats @ self.U.T + self.bU
-                worst = start
-
-                def step(etas, valids, worst):
-                    return self.crown_block(x_biases, labs, perms, etas,
-                                            valids, worst)
-
+                worst = (start,)
                 violated = lambda w: w > 0  # noqa: E731
-                worsts = lambda w: (w, w)  # noqa: E731
+                worsts = lambda w: (w[0][:I], w[0][:I])  # noqa: E731
             else:
-                p, xc_rows = self.rhs_rows(feats, self.chunk)
                 worst = (start, start.clone())
-
-                def step(etas, valids, worst):
-                    return self.lips_block(p, xc_rows, labs, perms, etas,
-                                           valids, worst)
-
                 violated = lambda w: w >= 0  # noqa: E731
-                worsts = lambda w: w  # noqa: E731
+                worsts = lambda w: (w[0][:I], w[1][:I])  # noqa: E731
             for etas, valids, n_valid in self.iter_blocks():
-                worst = step(etas, valids, worst)
+                worst = self._sharded(shards, steps, etas, valids, worst)
                 cells_checked += n_valid * I
                 n_blocks += 1
                 # one host read per block

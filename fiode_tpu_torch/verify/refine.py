@@ -1,5 +1,5 @@
 """Branch-and-bound cell refinement for the CROWN certificate (counterpart
-of ``fiode_tpu/verify/refine.py``, on one device).
+of ``fiode_tpu/verify/refine.py``).
 
 A positive CROWN bound on a grid cell is not a counterexample: the bound's
 slack scales with the cell's box half-width.  Refinement splits such a cell
@@ -32,6 +32,12 @@ candidates.  ``alpha_iters > 0`` bounds boxes with alpha-CROWN (never
 looser than plain, every iterate sound); the base sweep stays plain CROWN
 and its violated cells are filtered through the alpha bound before they
 enter the frontier.
+
+With a ``Certifier`` mesh every call's rows (base cells, frontier boxes)
+are split over the certifier's cell devices (``_placed``, the JAX package's
+``_row_placer`` rule: a 1-D mesh's axis, else its "cell" axis) and the
+results gathered on the model's device; rows are independent, so verdicts,
+violated counts and rounds are the unsharded run's.
 
 Every sweep and round runs with TF32 off (``float32_matmuls``).
 """
@@ -97,6 +103,44 @@ def _images(cert, x, todo):
         return _Image(int(label), x_biases[k], p, field_in[k:k + 1])
 
     return image
+
+
+def _placed(cert, kernels, **kw):
+    """``kernels(cert, **kw)``'s (sweep_fn, step_fn) with the rows of every
+    call split over ``cert.cell_devices()``: each piece runs on its
+    device's copy of the certifier (``Certifier.on``) with the image's
+    inputs moved there, and the results are gathered on ``cert.device``."""
+    reps = [cert.on(d) for d in cert.cell_devices()]
+    if len(reps) == 1 and reps[0] is cert:
+        return kernels(cert, **kw)
+    fns = {id(r): kernels(r, **kw) for r in reps}
+    moved = {"img": None, "on": []}
+
+    def images(img):
+        # the image's inputs on each device, made once per image
+        if moved["img"] is not img:
+            moved["img"] = img
+            moved["on"] = [img if r is cert else _Image(
+                img.label, img.x_bias.to(r.device), r.field_params(),
+                img.field_in.to(r.device)) for r in reps]
+        return moved["on"]
+
+    def split(which, rows, img):
+        pieces = [torch.tensor_split(t, len(reps)) for t in rows]
+        outs = []
+        for k, (rep, rep_img) in enumerate(zip(reps, images(img))):
+            part = [p[k].to(rep.device) for p in pieces]
+            if len(part[0]):
+                out = fns[id(rep)][which](*part, rep_img)
+                outs.append(out if isinstance(out, tuple) else (out,))
+        if not outs:
+            out = fns[id(reps[0])][which](*rows, img)
+            return out if isinstance(out, tuple) else (out,)
+        return tuple(torch.cat([o[i].to(cert.device) for o in outs])
+                     for i in range(len(outs[0])))
+
+    return (lambda cells, img: split(0, (cells,), img)[0],
+            lambda c, e, img: split(1, (c, e), img))
 
 
 def _spacing(x: torch.Tensor) -> torch.Tensor:
@@ -359,8 +403,8 @@ def refine_uncertified(
         stats = []
         if not len(todo):
             return certified, stats
-        sweep_fn, step_fn = _kernels(cert, alpha_iters=alpha_iters,
-                                     lips_box=lips_box)
+        sweep_fn, step_fn = _placed(cert, _kernels, alpha_iters=alpha_iters,
+                                    lips_box=lips_box)
         image = _images(cert, x, todo)
         for k, i in enumerate(todo):
             t0 = time.time()
@@ -440,7 +484,7 @@ def hybrid_base_sweep(cert, images, labels, *, lips_box: bool = True,
             todo = todo[~np.asarray(skip, bool)[:len(labels)]]
         if not len(todo):
             return []
-        sweep_fn, _ = _kernels(cert, lips_box=lips_box)
+        sweep_fn, _ = _placed(cert, _kernels, lips_box=lips_box)
         image = _images(cert, x, todo)
         stats = []
         for k, i in enumerate(todo):

@@ -1,5 +1,6 @@
 """Local grid refinement for the Lipschitz certificate (counterpart of
-``fiode_tpu/verify/refine_lips.py``, on one device).
+``fiode_tpu/verify/refine_lips.py``; on a ``Certifier`` mesh its rows are
+split as ``verify/refine.py``'s are).
 
 The Lipschitz certificate adds one global grid-gap slack
 sqrt(2) Lf_eta sqrt(n)/T to the exact Vdot at every lattice point; a cell
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from .certify import float32_matmuls
-from .refine import RefineStats, _bab, _images, _label_blocks, _todo
+from .refine import RefineStats, _bab, _images, _label_blocks, _placed, _todo
 
 __all__ = ["refine_lips_uncertified"]
 
@@ -158,7 +159,7 @@ def refine_lips_uncertified(
     exact_ok = np.asarray(exact_ok, bool)
 
     with torch.no_grad(), float32_matmuls():
-        sweep_fn, step_fn = _lips_kernels(cert)
+        sweep_fn, step_fn = _placed(cert, _lips_kernels)
         image = _images(cert, x, todo)
         for k, i in enumerate(todo):
             t0 = time.time()

@@ -324,11 +324,18 @@ def test_band_cells_are_the_jax_grid_cells():
         tcert.SLAB_STATES = saved
 
 
-def test_certify_refuses_plots_empty_bands_and_defaults_to_the_card():
+def test_certify_refuses_plots_empty_bands_and_defaults_to_the_card(tmp_path):
     _, tc, _ = _jax_ctrl(2)
     model = {"ctrl": tc, "P": torch.eye(3)}
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tcert.certify_segway(model=model, plot_dir="plots", device="cpu")
+    # plot_dir is served since the plotting module was ported: the two
+    # figures are written where matplotlib is installed, nothing otherwise
+    from fiode_tpu_torch.utils.plotting import HAVE_MATPLOTLIB
+    tcert.certify_segway(model=model, r=0.3, plot_dir=str(tmp_path / "plots"),
+                         verbose=False, device="cpu")
+    written = sorted(p.name for p in (tmp_path / "plots").glob("*.png")) \
+        if (tmp_path / "plots").exists() else []
+    assert written == (["segway_traj3d.png", "segway_vdot_phase.png"]
+                       if HAVE_MATPLOTLIB else [])
     with pytest.raises(ValueError, match="no grid cell"):
         tcert.certify_segway(model=model, level=1e-9, r=0.3, device="cpu",
                              simulate_trajectories=False, verbose=False)
