@@ -110,11 +110,30 @@ eval-mode solve.
     ([cuda:0] x 2 over cells, a 1 x 1 img x cell mesh) against the
     unsharded sweep (18g).
 
+  * phase 19: the example drivers, ``python -m
+    fiode_tpu_torch.examples.<name>`` in subprocesses on the card, all at
+    once (each reporting its kernels' launches, outputs under
+    chiprun_out/drivers/): full_workflow restoring the trained checkpoint,
+    CROWN and Lipschitz on
+    test images 0-3 over the whole T = 40 grid held to the committed
+    streams, 64 images attacked, certified ⊆ robust (19a); full_workflow
+    training one epoch of cifar_train.yaml at full width (19b);
+    segway_workflow at the full protocol, its verdict held to phase 16b's
+    (19c); hybrid_sweep (image 502, certified),
+    refute_witnesses (image 11, the float32 witness), refine_workflow
+    (image 15 in 2 rounds, held to phase 14's float32 answer),
+    refine_lips_workflow (image 3 in 2 rounds, held to phase 14c's float32
+    answer), alpha_crown_demo and alpha_probe, then
+    examples/refine_accounting.py and examples/inclusion_check.py on their
+    output (19d); dryrun_multichip on two ranks of the card, gloo over its
+    CUDA tensors (19e).  run_data/certified_full/ must be byte-equal after.
+
 ``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
 certification path, ``--phases train`` phases 1, 2 and 15, ``--phases
 control`` phases 1 and 16 (no build), ``--phases attack`` phases 1, 2 and
-10, ``--phases ode`` phases 1, 2 and 17, and ``--phases cli`` phases 1, 2
-and 18; none prints a result line.
+10, ``--phases ode`` phases 1, 2 and 17, ``--phases cli`` phases 1, 2
+and 18, and ``--phases drivers`` phases 1, 2 and 19; none prints a result
+line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -1894,7 +1913,7 @@ def segway_phase(dev, smi: str) -> dict:
         raise RuntimeError(f"a TPU kernel's port was launched on the Segway path: {launches}")
     log(f"[16 control] phase 16 in {time.perf_counter() - t_phase:.1f} s | launches "
         f"{launches} (no TPU kernel is on this path)")
-    return {"launches": launches}
+    return {"launches": launches, "certified": bool(mine.certified)}
 
 
 # phase 17: every solver, the continuous adjoint, the cached Cayley twin and
@@ -2217,11 +2236,12 @@ CLI_ATTACK_IMAGES = 64         # 18c
 CLI_MESH_IMAGES = range(4, 6)  # 18g
 CLI_MESH_CROWN_CELLS = 16 * 16 * CERT_CHUNK  # 18g's CROWN prefix of the grid
 CLI_TIMEOUT = 600
-# the CLI run as ``python -m fiode_tpu_torch`` (runpy, as -m does), then the
-# kernels' launch counts of that process as the last line of its stdout
+# a module run as ``python -m <module>`` (runpy, as -m does; the module is
+# the first argument), then the kernels' launch counts of that process as
+# the last line of its stdout
 CLI_COUNTING = (
-    "import json, runpy\n"
-    "runpy.run_module('fiode_tpu_torch', run_name='__main__', alter_sys=True)\n"
+    "import json, runpy, sys\n"
+    "runpy.run_module(sys.argv.pop(1), run_name='__main__', alter_sys=True)\n"
     "from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply\n"
     "from fiode_tpu_torch.ops.fused_rhs import fused_rhs, fused_rhs_vjp\n"
     "print('LAUNCHES ' + json.dumps({'fused_rhs': fused_rhs.launches,\n"
@@ -2229,14 +2249,16 @@ CLI_COUNTING = (
     "      'fused_freq_apply': fused_freq_apply.launches}), flush=True)\n")
 
 
-def run_cli(tag: str, args: list, counted: bool = True, launcher=None) -> dict:
-    """One command of the CLI in a subprocess from the repo root: its
-    stdout, seconds and (``counted``) the kernels' launches in it.  A
-    failing command fails the phase with its stderr printed."""
-    cmd = ([sys.executable, "-c", CLI_COUNTING] if counted
-           else [sys.executable, "-m", "fiode_tpu_torch"]) + args
+def run_cli(tag: str, args: list, counted: bool = True, launcher=None,
+            module: str = "fiode_tpu_torch") -> dict:
+    """One command of the CLI (or of another ``module``) in a subprocess
+    from the repo root: its stdout, seconds and (``counted``) the kernels'
+    launches in it.  A failing command fails the phase with its stderr
+    printed."""
+    cmd = ([sys.executable, "-c", CLI_COUNTING, module] if counted
+           else [sys.executable, "-m", module]) + args
     if launcher:
-        cmd = [sys.executable, "-m", *launcher, "-m", "fiode_tpu_torch", *args]
+        cmd = [sys.executable, "-m", *launcher, "-m", module, *args]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -2473,10 +2495,289 @@ def cli_phase(dev) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# phase 19: the example drivers, python -m fiode_tpu_torch.examples.<name>,
+# in subprocesses on the card (each reporting its kernels' launches), and
+# the multi-chip dry run; their outputs go to chiprun_out/drivers/
+DRIVERS_DIR = ROOT / "chiprun_out" / "drivers"
+DRIVER_IMAGES = 4              # 19a: CROWN and Lipschitz on test images 0-3
+DRIVER_ATTACK_IMAGES = 64      # 19a
+HYBRID_DRIVER_IMAGE = 502      # 19d: hybrid_sweep.json: certified, worst -0.511
+WITNESS_IMAGE, WITNESS_F32 = 11, -0.083997  # 19d: float32 (ROADMAP queue 3)
+WITNESS_TOL = 1e-5
+LIPS_DRIVER_IMAGE = 3          # 19d: phase 14c's Lipschitz BaB, 2 rounds
+PROBE_IMAGE, PROBE_SAMPLE = 11, 4096
+ALPHA_DEMO_IMAGE, ALPHA_DEMO_T = 11, 20
+DRYRUN_RANKS = 2               # 19e: two ranks on the one card (gloo)
+
+
+def _sha(root: Path) -> dict:
+    import hashlib
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def drivers_phase(dev, segway_verdict=None) -> dict:
+    """[19 drivers] the example drivers on the card, at once: 19a
+    full_workflow restoring the trained checkpoint (CROWN and Lipschitz on
+    images 0-3 at T = 40 held to the committed streams, 64 images attacked,
+    certified ⊆ robust), 19b full_workflow training one epoch at
+    full width, 19c segway_workflow at the full protocol (its verdict held
+    to phase 16b's), 19d hybrid_sweep, refute_witnesses, refine_workflow,
+    refine_lips_workflow, alpha_crown_demo and alpha_probe on one image
+    each, and 19e dryrun_multichip on two ranks of the card; then
+    examples/refine_accounting.py and examples/inclusion_check.py on what
+    19d wrote.  run_data/certified_full/ must be byte-equal after the
+    phase."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRIVERS_DIR, ignore_errors=True)
+    DRIVERS_DIR.mkdir(parents=True)
+    before = _sha(CERT_DIR)
+    run_dir = str(CERT_DIR.relative_to(ROOT))
+    secs, launches = {}, {}
+
+    def driver(tag, name, args):
+        r = run_cli(tag, args, module=f"fiode_tpu_torch.examples.{name}")
+        secs[tag], launches[tag] = r["seconds"], r["launches"]
+        return r
+
+    def results(sub, name):
+        return json.loads((DRIVERS_DIR / sub / name).read_text())
+
+    demo_keys = set(json.loads((ROOT / "examples" / "demo_RESULTS.json").read_text()))
+    crown_art = json.loads((CERT_DIR / "certify_stream_full_rep2.jsonl.json").read_text())
+    lips_art = json.loads((CERT_DIR / "lips_stream_full.jsonl.json").read_text())
+
+    # 19a-19e at once: the training epoch and the Segway workflow are
+    # host-bound, the sweeps are not, and every process pays its start-up
+    cert_out = DRIVERS_DIR / "certify"
+    cert_out.mkdir()
+    lips_summary = cert_out / f"lips_summary_{LIPS_DRIVER_IMAGE}.json"
+    # the Lipschitz summary of images 0-15 with every other image marked
+    # certified, so that the driver refines phase 14c's image alone
+    lips_summary.write_text(json.dumps(dict(
+        lips_art, n_images=16,
+        certified_idx=sorted(set(range(16)) - {LIPS_DRIVER_IMAGE}))))
+    common = ["--run-dir", run_dir, "--out-dir", str(cert_out)]
+    jobs = {
+        # 19a: full_workflow restoring the trained checkpoint at full width;
+        # the checkpoint trained 300 epochs (scale_nominal off from epoch 10)
+        "19a": ("full_workflow", [
+            "--restore", "--run-dir", run_dir, "--epochs", "300", "--T", str(CERT_T),
+            "--certify-images", str(DRIVER_IMAGES), "--attack-images",
+            str(DRIVER_ATTACK_IMAGES), "--out-dir", str(DRIVERS_DIR / "full_restore"),
+            f"++val_batch_size={DRIVER_ATTACK_IMAGES}"]),
+        "19b full_workflow train": ("full_workflow", [
+            "--epochs", "1", "--synthetic-size", "1024", "--T", "10",
+            "--certify-images", "2", "--attack-images", "32",
+            "--out-dir", str(DRIVERS_DIR / "full_train"), "++val_batch_size=32"]),
+        "19c segway_workflow": ("segway_workflow", ["--out-dir", str(DRIVERS_DIR / "segway")]),
+        "19d hybrid_sweep": ("hybrid_sweep", [*common, "--images", str(HYBRID_DRIVER_IMAGE)]),
+        "19d refute_witnesses": ("refute_witnesses", [*common, "--images",
+                                                      str(WITNESS_IMAGE)]),
+        "19d refine_workflow": ("refine_workflow", [*common, "--images", "15", "--end", "16",
+                                                    "--rounds", "2"]),
+        "19d refine_lips_workflow": ("refine_lips_workflow", [
+            *common, "--summary", str(lips_summary), "--end", "16", "--rounds",
+            str(LIPS_REFINE_ROUNDS)]),
+        "19d alpha_crown_demo": ("alpha_crown_demo", [
+            *common, "--start", str(ALPHA_DEMO_IMAGE), "--end", str(ALPHA_DEMO_IMAGE + 1),
+            "--T", str(ALPHA_DEMO_T), "--alpha-iters", "2"]),
+        "19d alpha_probe": ("alpha_probe", [*common, "--images", str(PROBE_IMAGE),
+                                            "--sample", str(PROBE_SAMPLE)]),
+    }
+
+    def dryrun():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import json\nfrom fiode_tpu_torch.entry import "
+             f"dryrun_multichip\nprint(json.dumps(dryrun_multichip({DRYRUN_RANKS})))"],
+            cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        secs["19e dryrun_multichip"] = time.perf_counter() - t0
+        if proc.returncode:
+            log(f"[19e dryrun] failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+            raise RuntimeError("19e: dryrun_multichip failed")
+        return proc.stdout.strip().splitlines()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        futures = [pool.submit(driver, tag, name, args)
+                   for tag, (name, args) in jobs.items()]
+        dry = pool.submit(dryrun)
+        for f in futures:
+            f.result()
+        dry_lines = dry.result()
+    secs["19a-19e at once"] = time.perf_counter() - t0
+
+    got = results("full_restore", "RESULTS.json")
+    imgs = range(DRIVER_IMAGES)
+    checks = {"crown certified_idx": (got["crown"]["certified_idx"], crown_art["certified_idx"]),
+              "lipschitz certified_idx": (got["lipschitz"]["certified_idx"],
+                                          lips_art["certified_idx"]),
+              "lipschitz larger_T_certified_idx": (got["lipschitz"]["larger_T_certified_idx"],
+                                                   lips_art["larger_T_certified_idx"])}
+    log(f"[19a full_workflow --restore] images 0-{DRIVER_IMAGES - 1} at T={CERT_T}: "
+        + " | ".join(f"{k} {a} (artifact {[i for i in b if i in imgs]})"
+                     for k, (a, b) in checks.items())
+        + f" | CROWN {got['crown']['cells_per_sec']:,.0f} image-cells/s in "
+        f"{got['crown']['seconds']:.1f} s | attack {got['autoattack']['n_images']} images: "
+        f"robust {len(got['autoattack']['robust_idx'])} in {got['attack_seconds']:.1f} s | "
+        f"consistent {got['consistent']} | command {secs['19a']:.1f} s | launches "
+        f"{launches['19a']}")
+    for k, (a, b) in checks.items():
+        if a != [i for i in b if i in imgs]:
+            raise RuntimeError(f"19a: {k} {a} is not the artifact's")
+    if not got["consistent"] or got["autoattack"]["n_images"] != DRIVER_ATTACK_IMAGES:
+        raise RuntimeError(f"19a: consistent {got['consistent']}, "
+                           f"{got['autoattack']['n_images']} images attacked")
+    if demo_keys - set(got) or got["certify_scale_nominal"]:
+        raise RuntimeError(f"19a: fields missing {demo_keys - set(got)}, or the "
+                           "certificate took the scaled field")
+    if min(launches["19a"].values()) == 0:
+        raise RuntimeError(f"19a: a kernel was not launched: {launches['19a']}")
+
+
+    got = results("full_train", "RESULTS.json")
+    losses = [json.loads(ln)["training_loss"] for ln in
+              (DRIVERS_DIR / "full_train" / "metrics.jsonl").read_text().splitlines()
+              if "training_loss" in ln]
+    missing = demo_keys - {"restore_seconds"} - set(got)
+    tag = "19b full_workflow train"
+    log(f"[19b full_workflow train] 1 epoch: {len(losses)} logged losses "
+        f"{[round(v, 4) for v in losses]} | val_err {got['validation_error']:.4f} | "
+        f"train {got['train_seconds']:.1f} s | crown {got['crown']['certified_idx']} "
+        f"lipschitz {got['lipschitz']['certified_idx']} at T=10 | robust "
+        f"{len(got['autoattack']['robust_idx'])}/{got['autoattack']['n_images']} | "
+        f"fields missing {sorted(missing)} | command {secs[tag]:.1f} s | launches "
+        f"{launches[tag]}")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"19b: training losses {losses}")
+    if not 0.0 <= got["validation_error"] <= 1.0 or missing:
+        raise RuntimeError(f"19b: val_err {got['validation_error']}, missing {missing}")
+    if min(launches[tag].values()) == 0:
+        raise RuntimeError(f"19b: a kernel was not launched: {launches[tag]}")
+
+    seg = results("segway", "SEGWAY_RESULTS.json")
+    ref = json.loads((SEGWAY_DIR / "segway_f32.json").read_text())["certify"]["0.01"]
+    want_seg, source = ((segway_verdict, "phase 16b") if segway_verdict is not None
+                        else (ref["certified"], "segway_f32.json"))
+    seg_keys = set(json.loads((ROOT / "examples" / "segway_RESULTS.json").read_text()))
+    log(f"[19c segway_workflow] best barrier loss {seg['best_barrier_loss']:.5f} | r=0.01: "
+        f"cells {seg['n_cells']} ub_max {seg['vdot_ub_max']:+.5f} certified "
+        f"{seg['certified']} ({source}: {want_seg}) | train {seg['train_seconds']:.1f} s, "
+        f"certify {seg['certify_seconds']:.1f} s | command "
+        f"{secs['19c segway_workflow']:.1f} s | launches {launches['19c segway_workflow']}")
+    if seg["certified"] != want_seg or not math.isfinite(seg["best_barrier_loss"]):
+        raise RuntimeError(f"19c: certified {seg['certified']}, {source} {want_seg}")
+    if seg_keys - {"recertified_sound_interval"} != set(seg):
+        raise RuntimeError(f"19c: fields {sorted(seg)} are not the JAX driver's")
+    if any(launches["19c segway_workflow"].values()):
+        raise RuntimeError("19c: a TPU kernel's port was launched on the Segway path")
+
+    hyb = results("certify", "hybrid_sweep.json")["stats"]
+    log(f"[19d hybrid_sweep] image {HYBRID_DRIVER_IMAGE}: worst {hyb[0]['worst']:+.6f} "
+        f"(artifact -0.511286) violated {hyb[0]['n_violated']} certified "
+        f"{hyb[0]['certified']} | {hyb[0]['seconds']:.1f} s | command "
+        f"{secs['19d hybrid_sweep']:.1f} s | launches {launches['19d hybrid_sweep']}")
+    if [s["image"] for s in hyb] != [HYBRID_DRIVER_IMAGE] or not hyb[0]["certified"]:
+        raise RuntimeError(f"19d: the hybrid sweep did not certify {HYBRID_DRIVER_IMAGE}")
+    wit = results("certify", "exact_witnesses.json")["witnesses"][0]
+    log(f"[19d refute_witnesses] image {WITNESS_IMAGE}: witness "
+        f"{wit['witness_value']:+.6f} (float32 {WITNESS_F32:+.6f}, artifact -0.076205) "
+        f"{wit['verdict']} | command {secs['19d refute_witnesses']:.1f} s | launches "
+        f"{launches['19d refute_witnesses']}")
+    if not abs(wit["witness_value"] - WITNESS_F32) <= WITNESS_TOL:
+        raise RuntimeError(f"19d: witness {wit['witness_value']}, float32 {WITNESS_F32}")
+    ref_full = results("certify", "refine_full.json")
+    s15 = ref_full["stats"][0]
+    f_viol, f_rounds, f_boxes = REFINE_F32[15]
+    log(f"[19d refine_workflow] image 15, 2 rounds: violated {s15['base_violated']} "
+        f"(float32 {f_viol}) rounds {s15['rounds']} ({f_rounds}) boxes "
+        f"{s15['boxes_evaluated']} ({f_boxes}) certified {s15['certified']} | "
+        f"matmul_precision {ref_full['matmul_precision']} | command "
+        f"{secs['19d refine_workflow']:.1f} s | launches {launches['19d refine_workflow']}")
+    if (abs(s15["base_violated"] - f_viol) > max(2, REFINE_VIOLATED_TOL * f_viol)
+            or s15["rounds"] != f_rounds or not s15["certified"]):
+        raise RuntimeError(f"19d: refine_workflow on image 15: {s15}")
+    lips = results("certify", "refine_lips_full.json")["stats"]
+    s3 = lips[0]
+    log(f"[19d refine_lips_workflow] image {LIPS_DRIVER_IMAGE}, {LIPS_REFINE_ROUNDS} "
+        f"rounds: violated {s3['base_violated']} (float32 {LIPS_REFINE_F32}) rounds "
+        f"{s3['rounds']} boxes {s3['boxes_evaluated']} certified {s3['certified']} "
+        f"gave up {s3['gave_up']!r} | command {secs['19d refine_lips_workflow']:.1f} s "
+        f"| launches {launches['19d refine_lips_workflow']}")
+    if ([s["image"] for s in lips] != [LIPS_DRIVER_IMAGE]
+            or abs(s3["base_violated"] - LIPS_REFINE_F32) > 1e-3 * LIPS_REFINE_F32
+            or s3["rounds"] != LIPS_REFINE_ROUNDS or not s3["boxes_evaluated"]
+            or s3["certified"] or s3["gave_up"] != "rounds"):
+        raise RuntimeError(f"19d: refine_lips_workflow on image {LIPS_DRIVER_IMAGE}: "
+                           f"{lips} is not phase 14c's answer")
+    alpha = results("certify", "ALPHA_CROWN.json")
+    log(f"[19d alpha_crown_demo] image {ALPHA_DEMO_IMAGE} at T={ALPHA_DEMO_T}: plain "
+        f"{alpha['plain_certified']} certified ({alpha['plain_cells_per_sec']:,.0f} "
+        f"cells/s), failing {alpha['failing_idx']}, alpha recovered "
+        f"{alpha.get('alpha_recovered')} ({alpha.get('alpha_cells_per_sec', 0):,.0f} "
+        f"cells/s) | command {secs['19d alpha_crown_demo']:.1f} s | launches "
+        f"{launches['19d alpha_crown_demo']}")
+    if alpha["failing_idx"] != [ALPHA_DEMO_IMAGE] or not math.isfinite(
+            alpha["alpha_cells_per_sec"]):
+        raise RuntimeError(f"19d: alpha-CROWN did not run on image {ALPHA_DEMO_IMAGE}")
+    probe = results("certify", "alpha_probe.json")[0]
+    log(f"[19d alpha_probe] image {PROBE_IMAGE}: {probe} | command "
+        f"{secs['19d alpha_probe']:.1f} s | launches {launches['19d alpha_probe']}")
+    if probe["plain_violated"] < PROBE_SAMPLE or not all(
+            0.0 <= probe[f"alpha{k}_closed_frac"] <= 1.0 for k in (2, 4, 8)):
+        raise RuntimeError(f"19d: alpha_probe {probe}")
+
+    # the two host-side folds of the JAX package, unchanged, on what the
+    # drivers wrote
+    for script, extra in (
+            ("refine_accounting.py", []),
+            ("inclusion_check.py", ["--attack", str(
+                CERT_DIR / "autoattack_full_standard_512_tmax01.json")])):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / script), "--run-dir", str(cert_out),
+             "--summary", str(CERT_DIR / "certify_stream_full.summary.json"), *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        log(f"[19d {script}] rc {proc.returncode} | {proc.stdout.strip()[-300:]}")
+        if proc.returncode:
+            raise RuntimeError(f"19d: {script} failed: {proc.stderr[-2000:]}")
+    acct = json.loads((cert_out / "refine_accounting.json").read_text())
+    inc = json.loads((cert_out / "inclusion_tmax01.json").read_text())
+    if acct["recovered"] != ref_full["recovered"] or not inc["inclusion_holds"]:
+        raise RuntimeError(f"19d: the accounting recovered {acct['recovered']}, the "
+                           f"refinement {ref_full['recovered']}; inclusion {inc}")
+
+    # 19e: the multi-chip dry run, two ranks on the card
+    lines = dry_lines
+    report = json.loads(lines[-1])
+    launches["19e"] = report["launches"]
+    log(f"[19e dryrun_multichip] {lines[-2]} | backend {report['backend']} | losses "
+        f"tiny {report['tiny_loss']:.5f} KWLarge {report['kwlarge_loss']:.5f} | CROWN "
+        f"chunk max {report['crown_chunk_max']:+.6f} | mesh certified "
+        f"{report['certify']['mesh']['certified']} refined "
+        f"{report['certify']['mesh']['refined']} (equal to unsharded) | APGD-CE "
+        f"{report['apgd_rows']} rows a rank, max attempts {report['apgd_max_attempts']} | "
+        f"{secs['19e dryrun_multichip']:.1f} s | rank 0's launches {report['launches']}")
+    if lines[-2] != f"dryrun_multichip({DRYRUN_RANKS}) OK":
+        raise RuntimeError("19e: the dry run did not report OK")
+
+    after = _sha(CERT_DIR)
+    if after != before:
+        raise RuntimeError(f"19: run_data/certified_full changed: "
+                           f"{sorted(k for k in set(before) | set(after) if before.get(k) != after.get(k))}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[19 drivers] phase 19 in {seconds:.1f} s | run_data/certified_full byte-equal | "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", choices=("all", "certify", "train", "control",
-                                         "ode", "attack", "cli"), default="all")
+                                         "ode", "attack", "cli", "drivers"),
+                    default="all")
     phases = ap.parse_args().phases
     only_certify, only_train = phases == "certify", phases == "train"
     if not torch.cuda.is_available():
@@ -2520,15 +2821,17 @@ def main() -> None:
     # (n = 10) and phase 3's wide state (n = 100); one nvcc each, together
     builds = [lambda: load_library("fused_cayley_conv"),
               lambda: fused_rhs_module.build(N_CLASSES, MLP)]
-    if phases in ("all", "certify", "cli"):
+    if phases in ("all", "certify", "cli", "drivers"):
         builds.append(lambda: load_cpp_library("grid_enum"))
     if phases == "all":
         builds.append(lambda: fused_rhs_module.build(WIDE_N, MLP))
+    if phases in ("all", "drivers"):  # the dry run's 3-class, mlp-16 certifier
+        builds.append(lambda: fused_rhs_module.build(3, 16))
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
-    log(f"[2 build] K1 + K2 ({'two widths' if phases == 'all' else 'one width'}) + K3 "
-        f"{'+ grid_enum (g++) ' if phases in ('all', 'certify', 'cli') else ''}built in {build_s:.1f} s "
+    log(f"[2 build] K1 + K2 ({'three widths' if phases == 'all' else 'two widths' if phases == 'drivers' else 'one width'}) + K3 "
+        f"{'+ grid_enum (g++) ' if phases in ('all', 'certify', 'cli', 'drivers') else ''}built in {build_s:.1f} s "
         f"into {BUILD_DIR}")
     # ptxas on every kernel; the main path's own (the flagship's K1, and its
     # K2 without weight gradients: every launch of phases 5, 9 and 10) may
@@ -2563,6 +2866,8 @@ def main() -> None:
             attack_phase(dev)
         elif phases == "cli":
             cli_phase(dev)
+        elif phases == "drivers":
+            drivers_phase(dev)
         else:
             ode_phases(flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev), dev)
         log(smi)
@@ -2847,7 +3152,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 16. the Segway safe controller (no TPU kernel on its path) ---------------
-    segway_phase(dev, smi)
+    seg = segway_phase(dev, smi)
 
     # 17. every solver, the adjoint, the cached twin, the legacy dynamics -------
     ode = ode_phases(model, dev)
@@ -2855,6 +3160,10 @@ def main() -> None:
 
     # 18. the command line --------------------------------------------------------
     cli = cli_phase(dev)
+    torch.cuda.empty_cache()
+
+    # 19. the example drivers and the multi-chip dry run ---------------------------
+    drivers = drivers_phase(dev, segway_verdict=seg["certified"])
 
     by_phase = {name: {"5 forward solve": launches.get(name, 0),
                        "9 gradient through the solve": grad["launches"][name],
@@ -2867,7 +3176,11 @@ def main() -> None:
                        "17 solvers and adjoint": ode["launches"][name],
                        "18a certify-crown CLI": cli["launches"]["18a"][name],
                        "18c eval-autoattack CLI": cli["launches"]["18c"][name],
-                       "18d train CLI": cli["launches"]["18d"][name]}
+                       "18d train CLI": cli["launches"]["18d"][name],
+                       "19a full_workflow restore": drivers["launches"]["19a"][name],
+                       "19b full_workflow train":
+                           drivers["launches"]["19b full_workflow train"][name],
+                       "19d hybrid_sweep": drivers["launches"]["19d hybrid_sweep"][name]}
                 for name in attack["launches"]}
     for name in ("fused_rhs", "fused_freq_apply"):  # the certification paths' kernels
         if min(by_phase[name].values()) == 0:
@@ -2898,7 +3211,7 @@ def main() -> None:
          "bound_by": max(("bytes", "operations"), key=kf.get),
          "library_ms": kf["fft"]},
     ]
-    log(f"[done] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

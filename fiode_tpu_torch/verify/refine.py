@@ -322,11 +322,12 @@ def _bab(step_fn, img, centers, eps0, *, block, max_rounds, frontier_cap,
 
 
 def _label_blocks(cert, label, chunk, superchunk):
-    """Yield (block (chunk superchunk, n) label-space cells, n_valid) over
-    the grid on the device; the tail block is zero-padded."""
+    """Yield (<= chunk superchunk, n) blocks of label-space cells over the
+    grid on the device.  The tail block holds only the grid's cells: its
+    padding would be bounded for nothing (a T = 8, n = 3 grid is 4 cells)."""
     perm = label_perms(torch.tensor([label], device=cert.device), cert.n)[0]
     for etas, _, n_valid in cert.iter_blocks(superchunk, chunk):
-        yield etas.reshape(-1, cert.n)[:, perm], n_valid
+        yield etas.reshape(-1, cert.n)[:n_valid, perm]
 
 
 def _todo(cert, x, labels, certified, clean, skip, order):
@@ -410,10 +411,10 @@ def refine_uncertified(
             t0 = time.time()
             img = image(k, labels[i])
             viol, n_viol, gave, pre_alpha = [], 0, "", 0
-            for block, nb in _label_blocks(cert, img.label, chunk, superchunk):
-                vals = sweep_fn(block, img)[:nb]
+            for block in _label_blocks(cert, img.label, chunk, superchunk):
+                vals = sweep_fn(block, img)
                 # fail CLOSED on NaN: a non-finite bound is collected
-                bad = block[:nb][~(vals <= 0.0)]
+                bad = block[~(vals <= 0.0)]
                 pre_alpha += len(bad)
                 if len(bad) and alpha_iters > 0:
                     # exact filter: the alpha bound is pointwise <= plain
@@ -492,8 +493,8 @@ def hybrid_base_sweep(cert, images, labels, *, lips_box: bool = True,
             img = image(k, labels[i])
             worst = torch.tensor(-math.inf, device=x.device)
             n_viol = torch.zeros((), dtype=torch.long, device=x.device)
-            for block, nb in _label_blocks(cert, img.label, chunk, superchunk):
-                vals = sweep_fn(block, img)[:nb]
+            for block in _label_blocks(cert, img.label, chunk, superchunk):
+                vals = sweep_fn(block, img)
                 n_viol += (~(vals <= 0.0)).sum()  # NaN fails closed
                 worst = torch.maximum(worst, torch.nan_to_num(
                     vals, nan=math.inf, posinf=math.inf,

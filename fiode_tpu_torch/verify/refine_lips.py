@@ -171,10 +171,10 @@ def refine_lips_uncertified(
                 continue
             img = image(k, labels[i])
             viol, n_viol, gave = [], 0, ""
-            for block, nb in _label_blocks(cert, img.label, chunk, superchunk):
-                vals = sweep_fn(block, img)[:nb]
+            for block in _label_blocks(cert, img.label, chunk, superchunk):
+                vals = sweep_fn(block, img)
                 # strict certificate, NaN fails closed: only vals < 0 pass
-                bad = block[:nb][~(vals < 0.0)]
+                bad = block[~(vals < 0.0)]
                 if len(bad):
                     viol.append(bad)
                     n_viol += len(bad)

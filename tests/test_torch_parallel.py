@@ -21,6 +21,7 @@ from fiode_tpu_torch.utils.config import compose
 from fiode_tpu_torch.verify.certify import Certifier, shard_devices
 from fiode_tpu_torch.verify.refine import hybrid_base_sweep, refine_uncertified
 from fiode_tpu_torch.verify.refine_lips import refine_lips_uncertified
+from test_torch_refine import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

@@ -376,7 +376,7 @@ def test_lips_box_runs_k1_through_the_certifiers_field(setup, monkeypatch):
     monkeypatch.setattr(tcertify, "fused_rhs", spy)
     stats = hybrid_base_sweep(setup.tcert, setup.x[:1], setup.y[:1],
                               chunk=32, superchunk=1)
-    assert len(stats) == 1 and sum(calls) == 96  # 65 cells, padded to 96
+    assert len(stats) == 1 and sum(calls) == 65  # the grid's 65 cells
 
 
 def test_hybrid_base_sweep_matches_jax_and_dominates(setup):

@@ -233,5 +233,5 @@ def test_refine_lips_centre_field_goes_through_fused_rhs(relu, monkeypatch):
         relu.tcert, relu.x[:1], relu.y[:1], relu.res.certified[:1],
         exact_ok=relu.res.larger_T_certified[:1], **BUDGETS)
     assert stats[0].boxes_evaluated > 0
-    # the sweep's padded block, then every BaB round's boxes
-    assert sum(calls) == BUDGETS["chunk"] + stats[0].boxes_evaluated
+    # the sweep's grid cells, then every BaB round's boxes
+    assert sum(calls) == len(relu.tcert.grid) + stats[0].boxes_evaluated
