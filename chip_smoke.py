@@ -37,7 +37,7 @@ and timing both:
     clean (11); the CROWN sweep on test images 4-11, held to the certified
     set of run_data/certified_full/certify_stream_full_rep2.jsonl.json,
     with one block's device time by stage and its peak memory, and the
-    synthetic sweep of bench_certify.py (12); the Lipschitz / larger-T
+    synthetic sweep of fiode_tpu_torch/bench_certify.py (12); the Lipschitz / larger-T
     sweep and exact_witness on test images 0-15 through K1, held to
     lips_stream_full.jsonl.json and exact_witnesses.json, with blocks
     through K1 against the same blocks through rhs_reference (13);
@@ -128,12 +128,20 @@ eval-mode solve.
     output (19d); dryrun_multichip on two ranks of the card, gloo over its
     CUDA tensors (19e).  run_data/certified_full/ must be byte-equal after.
 
+  * phase 20: the two benchmark programs, ``python -m
+    fiode_tpu_torch.bench`` (the flagship's dopri5 solve at B = 32768, its
+    kernel path held to the plain path first) and ``python -m
+    fiode_tpu_torch.bench_certify`` (the synthetic CROWN sweep), in
+    subprocesses at their defaults with their launches counted: each one's
+    last stdout line is its record (keys, the JAX twin's metric, unit and
+    baseline, the card), printed here; the bench launches K1 and K3.
+
 ``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
 certification path, ``--phases train`` phases 1, 2 and 15, ``--phases
 control`` phases 1 and 16 (no build), ``--phases attack`` phases 1, 2 and
 10, ``--phases ode`` phases 1, 2 and 17, ``--phases cli`` phases 1, 2
-and 18, and ``--phases drivers`` phases 1, 2 and 19; none prints a result
-line.
+and 18, ``--phases drivers`` phases 1, 2 and 19, and ``--phases bench``
+phases 1, 2 and 20; none prints a result line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -159,6 +167,14 @@ from unittest import mock
 
 import torch
 
+try:  # the package beside this script; nothing else of the repo is imported
+    from fiode_tpu_torch._bench_common import (card, conv_bound, counts, cuda_ms,
+                                               device_breakdown, kernel_ms,
+                                               plain_freq_apply, plain_path,
+                                               reset_counts, rhs_bound)
+except ModuleNotFoundError as e:
+    raise SystemExit(f"chip_smoke: no fiode_tpu_torch package beside {__file__} ({e})")
+
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_CLASSES, MLP = 10, 128
@@ -174,14 +190,6 @@ CONV_SHAPES = ((3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16),
 # KWLargeBackbone(in_channels=1, img_size=28))
 MNIST_CONV_SHAPES = ((1, 32, 3, 28), (128, 32, 2, 14), (32, 64, 3, 14),
                      (256, 64, 2, 7))
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): float32
-# outside the tensor cores, TF32 on the tensor cores, HBM3; a kernel's bound
-# is the larger of its bytes (each input read once, each output written
-# once) over the memory rate and its flops over the peak rate of the unit
-# that runs them: the products of K1 and K2 and K3's mix run on the tensor
-# cores in 3xTF32, three TF32 products per float32 product; K1's and K2's
-# bisection runs on float32 lanes
-FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 # phases 7-10: the certified configuration and the attack protocol of
 # run_data/certified_full/autoattack_full_standard_512_tmax01.json
 T_MAX, MAX_STEPS = 0.1, 8
@@ -207,8 +215,6 @@ LIPS_IMAGES = range(0, 16)
 # an image whose worst value lies this close to zero is held by its margin,
 # any other by its verdict; K1 blocks against plain blocks at the same
 CERT_MARGIN = 1e-4
-# bench_certify.py's synthetic sweep: 8 images x 4096 cells, 10 times
-BENCH_IMAGES, BENCH_CHUNK, BENCH_INNER = 8, 4096, 10
 # phase 14: refinement at the budgets of the committed passes.  Their
 # violated counts came from a TPU whose backbone features were not
 # float32-exact, so the gates hold the JAX package's float32 answers on the
@@ -245,80 +251,8 @@ def gen(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device milliseconds per call of ``fn`` (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_ms(fn, tags: tuple, iters: int = 20) -> float:
-    """Device milliseconds per call of ``fn`` spent in the kernels whose
-    names contain one of ``tags``, from torch.profiler: a launch shorter than
-    the host's work per call (~0.06 ms through the autograd wrapper) cannot
-    be timed between two events.  Falls back to ``cuda_ms`` if the profiler
-    saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if any(tag in e.key for tag in tags):
-            us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-    return us / 1e3 / iters if us > 0 else cuda_ms(fn, iters)
-
-
 K1_KERNELS = ("fused_rhs_kernel",)
 K2_KERNELS = ("fused_rhs_backward_kernel", "reduce_slots_kernel")
-
-
-def bound_ms(n_bytes: float, flops: float, rate: float = FP32_FLOPS) -> tuple:
-    """(least milliseconds, "bytes" or "operations") for flops at rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES, flops / rate
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def conv_bound(B, ci, co, n) -> tuple:
-    """Bound of one K3 apply: x and y once, Q once; the mix's 8 F co ci
-    flops per image at the 3xTF32 rate (a third of the TF32 peak); the
-    transforms' flops are not counted."""
-    F = n * (n // 2 + 1)
-    return bound_ms(4 * B * (ci + co) * n * n + 8 * F * co * ci,
-                    8 * B * F * co * ci, TF32_FLOPS / 3)
-
-
-def rhs_flops(n, m, qp_iters, backward=False, weight_grads=False) -> tuple:
-    """Flops per batch row of K1 (and of K2, which recomputes K1), as (the
-    products', the bisection's): three products forward; backward adds
-    d pre2, d pre1 and dh, and the weight gradients dW3, dW2 and dW1."""
-    products = 2 * n * m + 2 * m * m + 2 * m * n
-    if backward:
-        products *= 3 if weight_grads else 2
-    return products, 3 * n * qp_iters
-
-
-def rhs_bound(B, n, m, qp_iters, backward=False, weight_grads=False) -> tuple:
-    """Bound of one K1 or K2 launch: rows and weights once over the memory
-    rate; the products' flops at the 3xTF32 rate (a third of the TF32 peak)
-    plus the bisection's at the float32 rate."""
-    weights = 4 * (2 * m * n + m * m + m + n)
-    rows = 4 * B * ((n + m + n + n + m) if backward else (n + m + n))
-    products, bisection = rhs_flops(n, m, qp_iters, backward, weight_grads)
-    t_bytes = (rows + weights * (2 if weight_grads else 1)) / HBM_BYTES
-    t_ops = B * (products / (TF32_FLOPS / 3) + bisection / FP32_FLOPS)
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def k3_stage_ms(run, x, iters: int = 3) -> dict:
@@ -340,84 +274,6 @@ def k3_stage_ms(run, x, iters: int = 3) -> dict:
                 stages[stage] = stages.get(stage, 0.0) + us / 1e3 / iters
                 break
     return stages
-
-
-def device_breakdown(fn, top: int = 8, top_ops: int = 14) -> tuple:
-    """Run fn once under torch.profiler: (wall ms, device-busy ms, the top
-    kernels as (name, ms), the top operators as (name, input shapes, calls,
-    ms)).  The kernels are summed over the device's own kernel events only,
-    so that no time is counted twice through the ops that launched them; an
-    operator's time is that of the kernels it launched itself (not its
-    children's), grouped by operator and input shapes.  Kernels launched
-    outside any PyTorch operator (K1, K3) appear only among the kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = getattr(e, "cuda_time_total", 0)
-            rows.append((e.key, us / 1e3))
-    rows.sort(key=lambda r: -r[1])
-    ops = []
-    for e in prof.key_averages(group_by_input_shape=True):
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            ops.append((e.key, str(e.input_shapes), e.count, us / 1e3))
-    ops.sort(key=lambda r: -r[3])
-    return wall, sum(ms for _, ms in rows), rows[:top], ops[:top_ops]
-
-
-def counts() -> dict:
-    from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply
-    from fiode_tpu_torch.ops.fused_rhs import fused_rhs, fused_rhs_vjp
-    return {"fused_rhs": fused_rhs.launches,
-            "fused_rhs_backward": fused_rhs_vjp.launches,
-            "fused_freq_apply": fused_freq_apply.launches}
-
-
-def reset_counts() -> None:
-    from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply
-    from fiode_tpu_torch.ops.fused_rhs import fused_rhs, fused_rhs_vjp
-    fused_rhs.launches = fused_rhs_vjp.launches = fused_freq_apply.launches = 0
-
-
-def plain_freq_apply(x, Qr, Qi):
-    from fiode_tpu_torch.ops.cayley import apply_freq_matrices
-    return apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft")
-
-
-def plain_rhs_vjp(h, xc, g, p, *consts, weight_grads=True):
-    """fused_rhs_vjp by its plain version (no K2)."""
-    from fiode_tpu_torch.ops.fused_rhs import rhs_vjp_reference
-    dh, dxc, dp = rhs_vjp_reference(h, xc, g, p, *consts)
-    return dh, dxc, dp if weight_grads else None
-
-
-@contextlib.contextmanager
-def plain_path():
-    """Run solves with K1 and K3 replaced by their plain versions; their
-    backward is then autograd through the plain versions (no K2), and the
-    adjoint's augmented RHS takes the plain versions of K1 and K2."""
-    from fiode_tpu_torch.models import ivp, layers
-    from fiode_tpu_torch.ops.fused_rhs import rhs_reference
-    before = counts()
-    with mock.patch.object(ivp, "fused_rhs", rhs_reference), \
-            mock.patch.object(ivp, "fused_rhs_vjp", plain_rhs_vjp), \
-            mock.patch.object(layers, "fused_freq_apply", plain_freq_apply):
-        yield
-    if counts() != before:
-        raise RuntimeError("the plain path launched a kernel")
 
 
 def rhs_weights(dyn):
@@ -996,47 +852,16 @@ def crown_phase(model, grid, x, y, dev) -> dict:
     for name, shapes, calls, ms in top_ops:
         log(f"[12 device_breakdown]   op {ms:7.2f} ms  {calls:4d} x {name} {shapes[:100]}")
 
-    # bench_certify.py's synthetic sweep with the port's functions
-    rng = torch.Generator().manual_seed(SEED)
-    n, m = N_CLASSES, MLP
-    Ws = [(torch.randn(m, n, generator=rng) / n ** 0.5).to(dev),
-          (torch.randn(m, m, generator=rng) / m ** 0.5).to(dev),
-          (torch.randn(n, m, generator=rng) / m ** 0.5).to(dev)]
-    bs = [torch.zeros(m, device=dev), torch.zeros(m, device=dev),
-          torch.zeros(n, device=dev)]
-    xb = torch.randn(BENCH_IMAGES, m, generator=rng).to(dev)
-    labels = (torch.arange(BENCH_IMAGES) % n).to(dev)
-    e0 = torch.empty(BENCH_CHUNK, n).exponential_(generator=rng)
-    e0 = (e0 / e0.sum(-1, keepdim=True)).to(dev)
-    I, C, eps = BENCH_IMAGES, BENCH_CHUNK, 1.0 / CERT_T
-    x_rows = xb[:, None, :].expand(I, C, m).reshape(I * C, m)
-    label_rows = labels[:, None].expand(I, C).reshape(I * C)
-
-    def sweep():
-        worst = torch.full((I,), float("-inf"), device=dev)
-        for i in range(BENCH_INNER):
-            e = (e0 + i * 1e-6).expand(I, C, n).reshape(I * C, n)
-            lb, ub = crown_mlp_bounds(Ws, bs, e, eps, x_rows)
-            f_lb, f_ub = ibp_cbf_qp(e, eps, lb, ub, 100.0, 0.02, 20.0)
-            v = worst_case_vdot(e, eps, f_lb, f_ub, label_rows).view(I, C)
-            worst = torch.maximum(worst, v.amax(1))
-        return worst
-
-    with torch.no_grad(), float32_matmuls():
-        sweep()
-        best = float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            w = sweep()
-            finite = bool(torch.isfinite(w).all())  # the host read, as the JAX bench
-            best = min(best, time.perf_counter() - t0)
-    bench_rate = BENCH_INNER * C * I / best
+    # the synthetic sweep of python -m fiode_tpu_torch.bench_certify (its
+    # inputs, sweep and timing: a warm-up, then three calls each ended by a
+    # host read, non-finite worst values raising; phase 20 runs the program)
+    from fiode_tpu_torch import bench_certify
+    inp = bench_certify.inputs(SEED, dev)
+    I, C = inp["x_biases"].shape[0], inp["eta"].shape[0]
+    best = min(bench_certify.measure(inp)["call_ms"])
     log(f"[12 bench_certify] synthetic sweep, {I} images x {C} cells x "
-        f"{BENCH_INNER}, random weights, float32: {best * 1e3:.1f} ms, "
-        f"{bench_rate:,.0f} image-cells/s")
-    if not finite:
-        raise RuntimeError("the synthetic sweep is non-finite")
+        f"{bench_certify.N_INNER}, random weights, float32: {best:.1f} ms, "
+        f"{bench_certify.N_INNER * C * I / best * 1e3:,.0f} image-cells/s")
     return {"launches": launches, "rate": rate}
 
 
@@ -2242,18 +2067,15 @@ CLI_TIMEOUT = 600
 CLI_COUNTING = (
     "import json, runpy, sys\n"
     "runpy.run_module(sys.argv.pop(1), run_name='__main__', alter_sys=True)\n"
-    "from fiode_tpu_torch.ops.fused_cayley_conv import fused_freq_apply\n"
-    "from fiode_tpu_torch.ops.fused_rhs import fused_rhs, fused_rhs_vjp\n"
-    "print('LAUNCHES ' + json.dumps({'fused_rhs': fused_rhs.launches,\n"
-    "      'fused_rhs_backward': fused_rhs_vjp.launches,\n"
-    "      'fused_freq_apply': fused_freq_apply.launches}), flush=True)\n")
+    "from fiode_tpu_torch._bench_common import counts\n"
+    "print('LAUNCHES ' + json.dumps(counts()), flush=True)\n")
 
 
 def run_cli(tag: str, args: list, counted: bool = True, launcher=None,
             module: str = "fiode_tpu_torch") -> dict:
     """One command of the CLI (or of another ``module``) in a subprocess
-    from the repo root: its stdout, seconds and (``counted``) the kernels'
-    launches in it.  A failing command fails the phase with its stderr
+    from the repo root: its stdout and stderr, seconds and (``counted``) the
+    kernels' launches in it.  A failing command fails the phase with its stderr
     printed."""
     cmd = ([sys.executable, "-c", CLI_COUNTING, module] if counted
            else [sys.executable, "-m", module]) + args
@@ -2275,7 +2097,8 @@ def run_cli(tag: str, args: list, counted: bool = True, launcher=None,
         out = out[:-1]
     for ln in [ln for ln in out if ln.strip()][-4:]:
         log(f"    {tag} | {ln[:200]}")
-    return {"stdout": "\n".join(out), "seconds": secs, "launches": launches}
+    return {"stdout": "\n".join(out), "stderr": proc.stderr, "seconds": secs,
+            "launches": launches}
 
 
 def cli_phase(dev) -> dict:
@@ -2773,18 +2596,65 @@ def drivers_phase(dev, segway_verdict=None) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# phase 20: the keys each benchmark program's record must hold
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "qp_method", "best_ms",
+              "median_ms", "call_ms", "device_busy_frac", "mfu", "peak_flops",
+              "pct_peak_hbm", "bound", "device")
+BENCH_RECORD_KEYS = {
+    "bench": BENCH_KEYS + ("nfe_total", "launches", "device_busy_ms_per_solve",
+                           "flops_per_sample_nfe"),
+    "bench_certify": BENCH_KEYS + ("flops_per_cell", "worst", "tf32"),
+}
+
+
+def bench_phase() -> dict:
+    """[20 bench] ``python -m fiode_tpu_torch.bench`` and ``.bench_certify``
+    in subprocesses from the repo root at their defaults, their launches
+    counted: the last line of each one's stdout is its record, which must
+    hold its keys, its JAX twin's metric name, unit and baseline, and the
+    card; the bench must have launched K1 and K3."""
+    import importlib
+    t_phase = time.perf_counter()
+    out = {}
+    for tag, keys in BENCH_RECORD_KEYS.items():
+        mod = importlib.import_module(f"fiode_tpu_torch.{tag}")
+        res = run_cli(f"20 {tag}", [], module=mod.__name__)
+        for ln in res["stderr"].splitlines():
+            if ln.startswith(f"[{tag}]"):
+                log(f"    20 {tag} | {ln}")
+        rec = json.loads(res["stdout"].splitlines()[-1])
+        missing = [k for k in keys if k not in rec]
+        ref = mod.REF_SAMPLE_NFE_PER_SEC if tag == "bench" else mod.REF_CELLS_PER_SEC
+        log(f"[20 {tag}] {res['seconds']:.1f} s of command | launches "
+            f"{res['launches']} | record:")
+        log(json.dumps(rec))
+        if missing or rec["metric"] != mod.METRIC or rec["unit"] != mod.UNIT:
+            raise RuntimeError(f"{tag}'s record: keys missing {missing}, metric "
+                               f"{rec.get('metric')!r}, unit {rec.get('unit')!r}")
+        if not (rec["value"] > 0 and math.isclose(rec["vs_baseline"], rec["value"] / ref)):
+            raise RuntimeError(f"{tag}: value {rec['value']}, vs_baseline "
+                               f"{rec['vs_baseline']} (baseline {ref})")
+        if rec["device"]["name"] != card()["name"]:
+            raise RuntimeError(f"{tag} names the card {rec['device']}")
+        out[tag] = {"record": rec, "launches": res["launches"],
+                    "seconds": res["seconds"]}
+    launches = out["bench"]["launches"]
+    if launches["fused_rhs"] == 0 or launches["fused_freq_apply"] == 0:
+        raise RuntimeError(f"the bench launched {launches}: K1 and K3 must launch")
+    log(f"[20 bench] phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", choices=("all", "certify", "train", "control",
-                                         "ode", "attack", "cli", "drivers"),
+                                         "ode", "attack", "cli", "drivers",
+                                         "bench"),
                     default="all")
     phases = ap.parse_args().phases
     only_certify, only_train = phases == "certify", phases == "train"
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on a GPU")
-    if not (ROOT / "fiode_tpu_torch" / "csrc").is_dir():
-        raise SystemExit(f"chip_smoke: no fiode_tpu_torch package beside {__file__}")
-    sys.path.insert(0, str(ROOT))
     from fiode_tpu_torch.entry import certify_model, flagship
     from fiode_tpu_torch.models.backbones import KWLargeBackbone
     from fiode_tpu_torch.ops._build import (BUILD_DIR, load_cpp_library,
@@ -2798,10 +2668,7 @@ def main() -> None:
     t_start = time.perf_counter()
 
     # 1. device ---------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()["line"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[1 device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
@@ -2868,6 +2735,8 @@ def main() -> None:
             cli_phase(dev)
         elif phases == "drivers":
             drivers_phase(dev)
+        elif phases == "bench":
+            bench_phase()
         else:
             ode_phases(flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev), dev)
         log(smi)
@@ -3164,6 +3033,10 @@ def main() -> None:
 
     # 19. the example drivers and the multi-chip dry run ---------------------------
     drivers = drivers_phase(dev, segway_verdict=seg["certified"])
+    torch.cuda.empty_cache()
+
+    # 20. the two benchmark programs -------------------------------------------------
+    benches = bench_phase()
 
     by_phase = {name: {"5 forward solve": launches.get(name, 0),
                        "9 gradient through the solve": grad["launches"][name],
@@ -3180,7 +3053,8 @@ def main() -> None:
                        "19a full_workflow restore": drivers["launches"]["19a"][name],
                        "19b full_workflow train":
                            drivers["launches"]["19b full_workflow train"][name],
-                       "19d hybrid_sweep": drivers["launches"]["19d hybrid_sweep"][name]}
+                       "19d hybrid_sweep": drivers["launches"]["19d hybrid_sweep"][name],
+                       "20 bench": benches["bench"]["launches"][name]}
                 for name in attack["launches"]}
     for name in ("fused_rhs", "fused_freq_apply"):  # the certification paths' kernels
         if min(by_phase[name].values()) == 0:
@@ -3211,7 +3085,7 @@ def main() -> None:
          "bound_by": max(("bytes", "operations"), key=kf.get),
          "library_ms": kf["fft"]},
     ]
-    log(f"[done] phases 1-19 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
