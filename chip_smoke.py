@@ -62,7 +62,20 @@ and timing both:
     resumed from epoch 1 equal to the uninterrupted one; the best
     checkpoint through entry.certify_model; a few steps of
     mnist_train.yaml at full width (K3's direct passes); the step's host
-    time, device time by stage, idle share and peak memory.
+    time, device time by stage, idle share and peak memory.  15f: the
+    trainer's other modes on the same configuration: two steps each of
+    adv_train (PGD-7 on the Lyapunov objective), lips_train (on KWLarge,
+    whose constant is 1, and on its 4C3F twin, where the power iteration
+    runs), the train_ode blend at ode_portion 0.5 (K1, K2) and adv_train +
+    lips_train, the first step's loss through the kernels against the
+    plain path and its gradients by the kernels and by the plain VJPs on
+    one shared forward (on the kernel path's adversarial batch), its
+    launches checked against what the trainer's code implies, each step's
+    host time, device busy and peak memory; val_adv's evaluate on one
+    batch of 256 with 15a's trained weights (PGD-5 through the solve: K1,
+    K2, K3 and K3 on Q^H); run_train with adv_train, val_adv and
+    lips_train for one epoch of 1,024 images, its best checkpoint
+    following validation_adv_error.
 
 Phase 4 also holds K3 at a spatial size past the radix path's 32 (n = 64)
 and times it; phase 5 also checks that a solve in training mode equals the
@@ -137,7 +150,7 @@ eval-mode solve.
     baseline, the card), printed here; the bench launches K1 and K3.
 
 ``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
-certification path, ``--phases train`` phases 1, 2 and 15, ``--phases
+certification path, ``--phases train`` phases 1, 2 and 15 (15f included), ``--phases
 control`` phases 1 and 16 (no build), ``--phases attack`` phases 1, 2 and
 10, ``--phases ode`` phases 1, 2 and 17, ``--phases cli`` phases 1, 2
 and 18, ``--phases drivers`` phases 1, 2 and 19, and ``--phases bench``
@@ -1268,7 +1281,8 @@ def _snapshot(tr) -> dict:
     import copy
     return {"model": copy.deepcopy(tr.model.state_dict()),
             "opt": copy.deepcopy(tr.opt.state_dict()), "count": tr.opt_count,
-            "gen": tr.gen.get_state()}
+            "gen": tr.gen.get_state(), "gen_adv": tr.gen_adv.get_state(),
+            "lfx": copy.deepcopy(tr.lfx_state)}
 
 
 def _restore(tr, snap) -> None:
@@ -1277,6 +1291,8 @@ def _restore(tr, snap) -> None:
     tr.opt.load_state_dict(copy.deepcopy(snap["opt"]))
     tr.opt_count = snap["count"]
     tr.gen.set_state(snap["gen"])
+    tr.gen_adv.set_state(snap["gen_adv"])
+    tr.lfx_state = copy.deepcopy(snap["lfx"])
 
 
 def _grads(model) -> dict:
@@ -1302,7 +1318,7 @@ def train_phase(dev) -> dict:
     path (b); two steps of the ode objective: K2 with weight gradients,
     against the plain backward, bit-stable (c); resume from epoch 1 (d);
     the best checkpoint through entry.certify_model (e); a few steps of
-    mnist_train.yaml at full width, K3's direct passes (f); and the step's
+    mnist_train.yaml at full width, K3's direct passes (g); and the step's
     times."""
     import importlib.util
     import json as _json
@@ -1493,7 +1509,8 @@ def train_phase(dev) -> dict:
     if abs(err - best["validation_error"]) > 0.5 / len(pred):
         raise RuntimeError("certify_model does not reproduce the trained model")
 
-    # (f) mnist_train.yaml at full width on a cut synthetic set
+    # (g) mnist_train.yaml at full width on a cut synthetic set (15f, the
+    # trainer's other modes, is train_modes_phase)
     mcfg = compose("mnist_train.yaml", [nodata, f"++synthetic_size={TRAIN_MNIST_SIZE}"],
                    config_dir=cdir)
     reset_counts()
@@ -1506,7 +1523,7 @@ def train_phase(dev) -> dict:
     msteps = mtr.losses[0].numel()
     m_eval = -(-len(mtr.ds.val_x) // mtr.cfg.val_batch_size) \
         + -(-len(mtr.ds.test_x) // mtr.cfg.val_batch_size)
-    log(f"[15f mnist] B={mcfg['batch_size']} S={mcfg['module']['h_sample_size']} "
+    log(f"[15g mnist] B={mcfg['batch_size']} S={mcfg['module']['h_sample_size']} "
         f"KWLargeMNIST (K3 at n = 28, 14, 7: direct passes), warmup optimizer: "
         f"{msteps} steps in {m_s:.1f} s, losses {mtr.losses[0].cpu().numpy().round(4).tolist()} "
         f"| test_err {mtest['validation_error']:.4f} | launches {mlaunch} | cut: "
@@ -1520,6 +1537,259 @@ def train_phase(dev) -> dict:
     seconds = time.perf_counter() - t_phase
     log(f"[15 train] phase 15 in {seconds:.1f} s | launches {phase_launches}")
     return {"launches": phase_launches, "step_ms": 1e3 * min(secs)}
+
+# phase 15f: the classifier trainer's other modes (adv_train, lips_train, the
+# train_ode blend, val_adv) at cifar_train.yaml's full width on the synthetic
+# CIFAR set.  Cut: MODE_STEPS steps of each mode from one state (and
+# MODE_TIMED timed ones), one validation batch, and a run_train of one epoch
+# on MODES_RUN_SIZE synthetic images.
+MODES = {  # the TrainConfig fields each mode sets on cifar_train.yaml's
+    "adv_train": {"adv_train": True},
+    "lips_train": {"lips_train": True, "lips_warmup": 0},
+    "train_ode": {"train_ode": True},
+    "adv_train + lips_train": {"adv_train": True, "lips_train": True},
+}
+MODE_PORTION = 0.5             # the train_ode blend's ode_portion
+MODE_STEPS, MODE_TIMED = 2, 3
+PGD_TRAIN_ITERS, PGD_VAL_ITERS = 7, 5  # train/trainer.py's PGD-7 and PGD-5
+MODES_RUN_SIZE = 1024
+# lips_train with a plain backbone: KWLarge's constant is 1 by construction,
+# so the power iteration runs only on a backbone of LipsConv / LipsLinear
+# layers (the reference's 4C3F at cifar_train.yaml's B, S and dynamics)
+MODES_4C3F = "+module/init_fun/param_map@module.init_fun.param_map=CIFAR_4C3F"
+
+
+def mode_k3_per_step(adv: bool, blend: bool) -> int:
+    """K3 launches of one KWLarge training step, from the trainer's code: the
+    loss's backbone forward and its backward on Q^H (TRAIN_K3_PER_STEP);
+    the train_ode blend's solve runs the backbone once more; each PGD
+    iteration of adv_train runs the forward and, the input now needing a
+    gradient, K3 on Q^H in every conv layer."""
+    k3 = TRAIN_K3_PER_STEP * (2 if blend else 1)
+    return k3 + (PGD_TRAIN_ITERS * 2 * len(CONV_SHAPES) if adv else 0)
+
+
+def train_modes_phase(dev) -> dict:
+    """[15f modes] adv_train, lips_train, the train_ode blend and adv_train +
+    lips_train on cifar_train.yaml (KWLarge, mlp 128, B 128, S 256), and
+    lips_train on its 4C3F twin: MODE_STEPS steps of each from one state
+    (loss, Lips and kappa finite), the first one's loss through the
+    kernels against the plain path from the same state and draws, and its
+    gradients by the kernels and by the plain VJPs on one shared forward
+    (adv_train: on the kernel path's adversarial batch), the launches per
+    step against mode_k3_per_step, host ms per step (best of MODE_TIMED),
+    device busy and peak memory; val_adv's evaluate on one batch of 256
+    with phase 15a's trained weights (train_phase runs first); run_train
+    with adv_train, val_adv and lips_train for one epoch of MODES_RUN_SIZE
+    images, whose best checkpoint follows validation_adv_error."""
+    import dataclasses
+    import json as _json
+    import shutil
+    from fiode_tpu_torch.attacks.pgd import pgd_attack
+    from fiode_tpu_torch.bridge import load_npz
+    from fiode_tpu_torch.experiment import build_trainer, run_train
+    from fiode_tpu_torch.train import trainer as trainer_module
+    from fiode_tpu_torch.train.lips import compute_lfx, lfx_init
+    from fiode_tpu_torch.train.lyapunov import anneal_kappa, lips_kappa
+    from fiode_tpu_torch.utils.config import compose
+    t_phase = time.perf_counter()
+    mdir = TRAIN_DIR / "modes"
+    shutil.rmtree(mdir, ignore_errors=True)
+    nodata = f"++data_root={TRAIN_DIR / 'no-data'}"
+    cdir = str(ROOT / "configs" / "classification")
+    phase_launches = dict.fromkeys(counts(), 0)
+
+    def add(launches):
+        for k in phase_launches:
+            phase_launches[k] += launches[k]
+
+    def run_mode(tr, name, fields, want_k3):
+        """The mode's steps, checks and times on trainer ``tr``; launches
+        want_k3 K3 a step."""
+        base = tr.cfg
+        cfg = tr.cfg = dataclasses.replace(base, **fields)
+        B = cfg.batch_size
+        x, y = tr._train_x[:B], tr._train_y[:B]
+        mixer, sn = tr._epoch_mixer(0), tr._phase_scale_nominal
+        portion = MODE_PORTION if cfg.train_ode else 0.0
+        tr.reset_optimizer(False)
+        tr.lfx_state = lfx_init(tr.model.backbone, tr.ds.image_shape,
+                                torch.Generator(dev).manual_seed(cfg.seed + 1),
+                                dev) if cfg.lips_train else None
+        snap = _snapshot(tr)
+        attacks = []  # the first step's adversarial batch on each path
+
+        def recorded(*args, **kw):
+            attacks.append(pgd_attack(*args, **kw))
+            return attacks[-1]
+
+        steps = []
+        for i in range(MODE_STEPS):
+            reset_counts()
+            with mock.patch.object(trainer_module, "pgd_attack",
+                                   recorded if i == 0 else pgd_attack):
+                loss, m = tr._train_step(x, y, i, mixer, portion, sn)
+            torch.cuda.synchronize()
+            if i == 0:
+                launches, loss_k = counts(), loss.item()
+            steps.append((loss.item(), float(m["Lips"]), float(m["kappa"])))
+        add(launches)
+        if not all(math.isfinite(v) for step in steps for v in step):
+            raise RuntimeError(f"{name}: a loss, Lips or kappa is not finite: {steps}")
+        _restore(tr, snap)
+        with plain_path(), mock.patch.object(trainer_module, "pgd_attack", recorded):
+            loss_p = tr._train_step(x, y, 0, mixer, portion, sn)[0].item()
+        # the step's loss through the kernels and through the plain path;
+        # its gradients on one shared forward (the kernel path's, on its
+        # adversarial batch), by the kernels and by the plain VJPs: a
+        # near-tied GroupSort pair that takes the other branch on one path
+        # (phase 9) moves that image's gradient, and its PGD, elsewhere, and
+        # two adaptive solves round apart
+        loss_tol = GRAD_LOSS_TOL if cfg.train_ode else 1e-4
+        held = f"loss {loss_k:.6f} / {loss_p:.6f} (tol {loss_tol:g} rel)"
+        if cfg.adv_train:
+            d = (attacks[0] - attacks[1]).flatten(1).abs().amax(1)
+            held = (f"PGD-{PGD_TRAIN_ITERS}'s batch max |d| {d.max().item():.3e}, "
+                    f"{int((d > 1e-3).sum())} of {len(d)} images beyond 1e-3 | "
+                    f"{held}")
+        _restore(tr, snap)
+        dyn = tr.model.dynamics
+        if cfg.lips_train and tr.lfx_state is not None:
+            Lfx = compute_lfx(tr.model.backbone, tr.lfx_state, tr.ds.image_shape)[0]
+            kappa = lips_kappa(0, dyn.kappa, dyn.kappa_length, cfg.eps, Lfx,
+                               cfg.lips_warmup)
+        else:
+            kappa = anneal_kappa(0, dyn.kappa, dyn.kappa_length)
+        loss = tr._full_loss(attacks[0] if cfg.adv_train else x, y, mixer,
+                             kappa, sn, portion, {})[0]
+        tr.model.zero_grad(set_to_none=True)
+        loss.backward(retain_graph=True)
+        torch.cuda.synchronize()
+        grads_k = _grads(tr.model)
+        tr.model.zero_grad(set_to_none=True)
+        with plain_backwards():
+            loss.backward()
+        g_err, g_name = _max_rel(grads_k, _grads(tr.model))
+        g_tol = GRAD_DX_TOL if cfg.train_ode else TRAIN_GRAD_TOL
+        held += (f" | shared forward, kernel vs plain backward: max grad err "
+                 f"{g_err:.3e} ({g_name}; tol {g_tol:g})")
+        ok = abs(loss_k - loss_p) <= loss_tol * abs(loss_p) and g_err <= g_tol
+        # launches per step, derived from the code (mode_k3_per_step)
+        solves = cfg.train_ode
+        if not (launches["fused_freq_apply"] == want_k3
+                and (0 < launches["fused_rhs_backward"] <= launches["fused_rhs"]
+                     if solves else launches["fused_rhs"] == 0
+                     and launches["fused_rhs_backward"] == 0)):
+            raise RuntimeError(f"{name}: launches per step {launches}, want K3 "
+                               f"{want_k3} and K1 / K2 {'> 0' if solves else '0'}")
+        _restore(tr, snap)
+        secs = []
+        for i in range(MODE_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._train_step(x, y, i, mixer, portion, sn)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr._train_step(x, y, 0, mixer, portion, sn)
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        bd = train_step_breakdown(lambda: tr._train_step(x, y, 0, mixer, portion, sn))
+        log(f"[15f {name}] steps (loss, Lips, kappa) "
+            f"{[tuple(round(v, 5) for v in s) for s in steps]} | kernel vs plain: "
+            f"{held} | launches per step {launches} (K3 want {want_k3}) | "
+            f"{1e3 * min(secs):.2f} ms best of {len(secs)} (host clock; "
+            f"{[round(1e3 * s, 2) for s in secs]}) | profiled in this process: "
+            f"wall {bd['wall_ms']:.2f} ms, device busy {bd['busy_ms']:.2f} ms in "
+            f"{bd['kernels']} device events, idle {bd['idle']:.2f} | peak "
+            f"{peak:.2f} GiB above the step's start")
+        if not ok:
+            raise RuntimeError(f"{name}: the kernel step disagrees with the plain step")
+        tr.cfg = base
+
+    cfg = compose("cifar_train.yaml", [nodata], config_dir=cdir)
+    tr = build_trainer(cfg, str(mdir / "steps"), device=dev)
+    log(f"[15f modes] cifar_train.yaml: B={tr.cfg.batch_size} "
+        f"S={tr.cfg.h_sample_size} eps={tr.cfg.eps:g} {tr.cfg.norm}, PGD-"
+        f"{PGD_TRAIN_ITERS} in a step, PGD-{PGD_VAL_ITERS} at validation, "
+        f"ode_portion {MODE_PORTION} | cut: {MODE_STEPS} steps a mode (+"
+        f"{MODE_TIMED} timed), one validation batch, run_train 1 epoch of "
+        f"{MODES_RUN_SIZE} images")
+    for name, fields in MODES.items():
+        run_mode(tr, name, fields, mode_k3_per_step(
+            fields.get("adv_train", False), fields.get("train_ode", False)))
+    log(f"[15f lips_train] KWLarge is orthogonal: Lips is its constant 1 and "
+        f"no power iteration runs (lfx_state None), so the step is the "
+        f"Lyapunov step")
+    pcfg = compose("cifar_train.yaml", [nodata, MODES_4C3F,
+                                        f"++synthetic_size={MODES_RUN_SIZE}"],
+                   config_dir=cdir)
+    ptr = build_trainer(pcfg, str(mdir / "4c3f"), device=dev)
+    run_mode(ptr, "lips_train 4C3F", MODES["lips_train"], 0)
+
+    # val_adv: evaluate on one validation batch, with the weights phase 15a
+    # trained (at random weights ~96% of the images are wrong, many near a
+    # tie, and the adversarial solve's other steps may right a few of them)
+    trained = TRAIN_DIR / "a" / "ckpt" / "best.npz"
+    load_npz(tr.model, trained)
+    tr.cfg = dataclasses.replace(tr.cfg, val_adv=True)
+    want_k3 = len(CONV_SHAPES) * (2 + 2 * PGD_VAL_ITERS)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = tr.evaluate(max_batches=1)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    launches = counts()
+    add(launches)
+    n_val = min(len(tr.ds.val_x), tr.cfg.val_batch_size)
+    log(f"[15f val_adv] evaluate on {n_val} validation images ({trained}): error "
+        f"{val['validation_error']:.4f}, adversarial {val['validation_adv_error']:.4f} "
+        f"| {val_s:.2f} s | launches {launches} (K3 want {want_k3}: the clean "
+        f"and adversarial solves and {PGD_VAL_ITERS} PGD forwards and backwards)")
+    if not (launches["fused_freq_apply"] == want_k3 and launches["fused_rhs"] > 0
+            and launches["fused_rhs_backward"] > 0):
+        raise RuntimeError(f"val_adv launches {launches}")
+    if not (math.isfinite(val["validation_loss"])
+            and val["validation_adv_error"] >= val["validation_error"]):
+        raise RuntimeError(f"val_adv: {val}")
+
+    # the config runner reaches the modes
+    rcfg = compose("cifar_train.yaml", [
+        nodata, f"++synthetic_size={MODES_RUN_SIZE}", "++module.adv_train=true",
+        "++module.val_adv=true", "++module.lips_train=true"], config_dir=cdir)
+    reset_counts()
+    t0 = time.perf_counter()
+    rtr, test = run_train(rcfg, run_dir=str(mdir / "run"), epochs=1, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    add(launches)
+    losses = rtr.losses[0]
+    best = _json.loads((rtr.ckpt.dir / "best.json").read_text())
+    n_eval = sum(-(-len(xs) // rtr.cfg.val_batch_size)
+                 for xs in (rtr.ds.val_x, rtr.ds.test_x))
+    want_k3 = losses.numel() * mode_k3_per_step(True, False) + n_eval * (
+        len(CONV_SHAPES) * (2 + 2 * PGD_VAL_ITERS))
+    log(f"[15f run_train] adv_train + val_adv + lips_train, 1 epoch: "
+        f"{losses.numel()} steps in {run_s:.1f} s, losses "
+        f"{losses.cpu().numpy().round(4).tolist()} | best {best} (monitor "
+        f"{rtr.ckpt.monitor}) | test error {test['validation_error']:.4f}, "
+        f"adversarial {test['validation_adv_error']:.4f} | launches {launches} "
+        f"(K3 want {want_k3})")
+    if not (torch.isfinite(losses).all() and losses.numel() > 0):
+        raise RuntimeError(f"run_train with the modes: losses {losses}")
+    if not (rtr.ckpt.monitor == "validation_adv_error"
+            and "validation_adv_error" in best
+            and rtr.ckpt.path("best").exists()):
+        raise RuntimeError(f"the best checkpoint does not follow "
+                           f"validation_adv_error: {best}")
+    if launches["fused_freq_apply"] != want_k3:
+        raise RuntimeError(f"run_train with the modes launched {launches}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[15f modes] phase 15f in {seconds:.1f} s | launches {phase_launches}")
+    return {"launches": phase_launches}
+
 
 # phase 16: the Segway safe controller at examples/segway_workflow.py's
 # protocol.  No TPU kernel is on this path (a 3 -> 32 -> 1 ReLU controller,
@@ -2108,52 +2378,83 @@ def cli_phase(dev) -> dict:
     apgd-t) of 64 images; 18d train cifar_train.yaml for one epoch, then
     certify-lipschitz restoring its best.npz; 18e the same training under
     torch.distributed.run on one NCCL rank; 18f segway-certify with figures;
-    18g the Certifier on a mesh of the card, in this process."""
-    import importlib.util
+    18g the Certifier on a mesh of the card, in this process.  The commands
+    run at once (as phase 19's drivers do) while this process does 18b's
+    sweep and 18g, then each is checked in turn: a command's seconds are
+    its wall time among the others on the card."""
     import shutil
-    import numpy as np
-    from fiode_tpu_torch.entry import certify_model
-    from fiode_tpu_torch.parallel.mesh import Mesh
-    from fiode_tpu_torch.train.data import load_dataset
-    from fiode_tpu_torch.verify.certify import Certifier
-    from fiode_tpu_torch.verify.grid import enumerate_decision_boundary
     t_phase = time.perf_counter()
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     CLI_DIR.mkdir(parents=True)
     run_dir = str(CERT_DIR.relative_to(ROOT))
     certify_args = ["--config-name", "cifar_certify.yaml", "--run-dir", run_dir]
     secs, launches = {}, {}
+    crown_log, lips_log = CLI_DIR / "crown.jsonl", CLI_DIR / "lips.jsonl"
+    aa_out, plot_dir = CLI_DIR / "autoattack.json", CLI_DIR / "segway_plots"
+    train_dir, ddp_dir = CLI_DIR / "train", CLI_DIR / "train_ddp"
+    train_args = ["train", "--config-name", "cifar_train.yaml", "--epochs", "1"]
+    lips_lo, lips_hi = CLI_LIPS_IMAGES[0], CLI_LIPS_IMAGES[-1] + 1
 
-    # 18a: CROWN over the whole grid, then summarize-stream of its log
-    crown_log = CLI_DIR / "crown.jsonl"
-    r = run_cli("18a", ["certify-crown", *certify_args,
-                        f"++start_ind={CLI_CROWN_IMAGE}",
-                        f"++end_ind={CLI_CROWN_IMAGE + 1}",
-                        "--stream-out", str(crown_log)])
-    secs["18a"], launches["18a"] = r["seconds"], r["launches"]
-    summary = json.loads(Path(f"{crown_log}.json").read_text())
-    want = json.loads((CERT_DIR / "certify_stream_full_rep2.jsonl.json").read_text())
-    expect = [i for i in want["certified_idx"] if i == CLI_CROWN_IMAGE]
-    r = run_cli("18a", ["summarize-stream", str(crown_log), "--out",
-                        str(CLI_DIR / "crown_summary.json")], counted=False)
-    secs["18a summarize"] = r["seconds"]
-    folded = json.loads((CLI_DIR / "crown_summary.json").read_text())
-    common = ("n_images", "matmul_precision", "clean_acc", "certified_acc",
-              "certified_idx", "cells_checked")
-    log(f"[18a certify-crown] image {CLI_CROWN_IMAGE}: clean {summary['clean_idx']} "
-        f"certified {summary['certified_idx']} (artifact {expect}) | "
-        f"{summary['cells_checked']:,} image-cells in {summary['seconds']:.1f} s | "
-        f"command {secs['18a']:.1f} s | launches {launches['18a']} | "
-        f"summarize-stream equal on {common}: "
-        f"{all(folded[k] == summary[k] for k in common)}")
-    if summary["clean_idx"] != [CLI_CROWN_IMAGE] or summary["certified_idx"] != expect:
-        raise RuntimeError(f"18a: certified {summary['certified_idx']}, artifact {expect}")
-    if summary["cells_checked"] != CERT_CELLS:
-        raise RuntimeError("18a: the sweep did not cover the grid")
-    if not (launches["18a"]["fused_rhs"] and launches["18a"]["fused_freq_apply"]):
-        raise RuntimeError(f"18a: the clean check missed K1 or K3: {launches['18a']}")
-    if any(folded[k] != summary[k] for k in common):
-        raise RuntimeError(f"18a: summarize-stream {folded} differs from {summary}")
+    def crown():  # 18a, then summarize-stream of its log
+        return (run_cli("18a", ["certify-crown", *certify_args,
+                                f"++start_ind={CLI_CROWN_IMAGE}",
+                                f"++end_ind={CLI_CROWN_IMAGE + 1}",
+                                "--stream-out", str(crown_log)]),
+                run_cli("18a", ["summarize-stream", str(crown_log), "--out",
+                                str(CLI_DIR / "crown_summary.json")],
+                        counted=False))
+
+    def train():  # 18d, then certify-lipschitz restoring its best.npz
+        return (run_cli("18d", [*train_args, "--run-dir", str(train_dir)]),
+                run_cli("18d", ["certify-lipschitz", "--config-name",
+                                "cifar_certify.yaml", "--run-dir",
+                                str(train_dir), "++end_ind=2", "--stream-out",
+                                str(CLI_DIR / "train_lips.jsonl")]))
+
+    pool = ThreadPoolExecutor(6)
+    jobs = {
+        "18a": pool.submit(crown),
+        "18b": pool.submit(run_cli, "18b", [
+            "certify-lipschitz", *certify_args, f"++start_ind={lips_lo}",
+            f"++end_ind={lips_hi}", "--stream-out", str(lips_log)]),
+        "18c": pool.submit(run_cli, "18c", [
+            "eval-autoattack", *certify_args, "--max-images",
+            str(CLI_ATTACK_IMAGES), "--attacks", "apgd-ce,apgd-t", "--out",
+            str(aa_out), f"++module.t_max={T_MAX}",
+            f"++module.max_steps={MAX_STEPS}"]),
+        "18d": pool.submit(train),
+        "18e": pool.submit(run_cli, "18e", [
+            *train_args, "--multihost", "--run-dir", str(ddp_dir)],
+            counted=False, launcher=["torch.distributed.run", "--standalone",
+                                     "--nproc_per_node=1"]),
+        "18f": pool.submit(run_cli, "18f", [
+            "segway-certify", "--model",
+            str((SEGWAY_DIR / "segway_f32.npz").relative_to(ROOT)), "--r",
+            "0.01", "--plot-dir", str(plot_dir)], counted=False),
+    }
+    try:
+        _cli_checks(dev, jobs, secs, launches)
+    finally:
+        pool.shutdown(wait=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"[18 cli] phase 18 in {seconds:.1f} s | "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return {"launches": launches, "seconds": seconds}
+
+
+def _cli_checks(dev, jobs, secs, launches) -> None:
+    """Phase 18's checks of each command in ``jobs`` (futures of run_cli),
+    in order, and 18b's and 18g's work in this process."""
+    import importlib.util
+    import numpy as np
+    from fiode_tpu_torch.entry import certify_model
+    from fiode_tpu_torch.parallel.mesh import Mesh
+    from fiode_tpu_torch.train.data import load_dataset
+    from fiode_tpu_torch.verify.certify import Certifier
+    from fiode_tpu_torch.verify.grid import enumerate_decision_boundary
+    crown_log, lips_log = CLI_DIR / "crown.jsonl", CLI_DIR / "lips.jsonl"
+    aa_out, plot_dir = CLI_DIR / "autoattack.json", CLI_DIR / "segway_plots"
+    train_dir, ddp_dir = CLI_DIR / "train", CLI_DIR / "train_ddp"
 
     # the in-process model, grid and images of 18b and 18g
     model = certify_model(t_max=CERT_T_MAX, max_steps=CERT_MAX_STEPS, device=dev,
@@ -2163,127 +2464,10 @@ def cli_phase(dev) -> dict:
     y = torch.from_numpy(ds.test_y).to(dev, torch.long)
     grid = enumerate_decision_boundary(N_CLASSES, CERT_T)
 
-    # 18b: Lipschitz, held to the same sweep in this process and to the
-    # artifact (an image whose worst value lies within CERT_MARGIN of zero
-    # is held by its margin, as in phase 13)
-    lips_log = CLI_DIR / "lips.jsonl"
+    # 18b's sweep in this process, while the commands run
     lo, hi = CLI_LIPS_IMAGES[0], CLI_LIPS_IMAGES[-1] + 1
-    r = run_cli("18b", ["certify-lipschitz", *certify_args, f"++start_ind={lo}",
-                        f"++end_ind={hi}", "--stream-out", str(lips_log)])
-    secs["18b"] = r["seconds"]
-    got = json.loads(Path(f"{lips_log}.json").read_text())
     mine = Certifier(model, T=CERT_T, eps_input=CERT_EPS, chunk=CERT_CHUNK,
                      grid=grid).certify(x[lo:hi], y[lo:hi], method="lipschitz")
-    art = json.loads((CERT_DIR / "lips_stream_full.jsonl.json").read_text())
-    for key, verdicts, worst in (
-            ("certified_idx", mine.certified, mine.worst),
-            ("larger_T_certified_idx", mine.larger_T_certified, mine.worst_larger_T)):
-        here = [lo + i for i, c in enumerate(verdicts) if c]
-        expect = [i for i in art[key] if lo <= i < hi]
-        log(f"[18b certify-lipschitz] {key}: CLI {got[key]} | in process {here} | "
-            f"artifact {expect} | worst " + " ".join(f"{w:+.4f}" for w in worst))
-        if got[key] != here:
-            raise RuntimeError(f"18b: the CLI's {key} {got[key]} is not {here}")
-        for i, w in zip(range(lo, hi), worst):
-            if (i in here) != (i in expect) and abs(w) > CERT_MARGIN:
-                raise RuntimeError(f"18b: image {i} (worst {w}) differs from the artifact")
-    log(f"[18b certify-lipschitz] command {secs['18b']:.1f} s")
-
-    # 18c: attacks at the attack protocol's t_max 0.1, max_steps 8; no
-    # certified image (every one but the open ones) may be broken
-    aa_out = CLI_DIR / "autoattack.json"
-    r = run_cli("18c", ["eval-autoattack", *certify_args, "--max-images",
-                        str(CLI_ATTACK_IMAGES), "--attacks", "apgd-ce,apgd-t",
-                        "--out", str(aa_out), f"++module.t_max={T_MAX}",
-                        f"++module.max_steps={MAX_STEPS}"])
-    secs["18c"], launches["18c"] = r["seconds"], r["launches"]
-    aa = json.loads(aa_out.read_text())
-    jax_fields = set(json.loads((CERT_DIR / "autoattack_full_standard_512_tmax01.json")
-                                .read_text()))
-    open_images = set(json.loads((CERT_DIR / "refine_accounting.json").read_text())
-                      ["open_images"])
-    broken = [i for i in range(CLI_ATTACK_IMAGES)
-              if i not in aa["robust_idx"] and i not in open_images]
-    log(f"[18c eval-autoattack] {aa['attacks']} on {aa['n_images']} images: robust "
-        f"{len(aa['robust_idx'])}/{aa['n_images']} in {aa['seconds']:.1f} s, max "
-        f"attempts {aa['max_attempts']} of {aa['max_steps']} | certified broken: "
-        f"{broken} | JAX artifact fields missing: {sorted(jax_fields - set(aa))} | "
-        f"command {secs['18c']:.1f} s | launches {launches['18c']}")
-    if broken or jax_fields - set(aa) or aa["n_images"] != CLI_ATTACK_IMAGES:
-        raise RuntimeError(f"18c: broken {broken}, missing {jax_fields - set(aa)}")
-    if min(launches["18c"].values()) == 0:
-        raise RuntimeError(f"18c: a kernel was not launched by the attacks: "
-                           f"{launches['18c']}")
-
-    # 18d: one epoch of cifar_train.yaml at full width on the synthetic set,
-    # then certify-lipschitz restoring the run's own best.npz
-    train_args = ["train", "--config-name", "cifar_train.yaml", "--epochs", "1"]
-    train_dir = CLI_DIR / "train"
-    r = run_cli("18d", [*train_args, "--run-dir", str(train_dir)])
-    secs["18d train"], launches["18d"] = r["seconds"], r["launches"]
-    missing = [f for f in ("metrics.jsonl", "ckpt/best.npz", "ckpt/resume.pt")
-               if not (train_dir / f).exists()]
-    r = run_cli("18d", ["certify-lipschitz", "--config-name", "cifar_certify.yaml",
-                        "--run-dir", str(train_dir), "++end_ind=2", "--stream-out",
-                        str(CLI_DIR / "train_lips.jsonl")])
-    secs["18d certify"] = r["seconds"]
-    restored = json.loads((CLI_DIR / "train_lips.jsonl.json").read_text())
-    log(f"[18d train] one epoch in {secs['18d train']:.1f} s (command) | missing "
-        f"{missing} | launches {launches['18d']} | certify-lipschitz of its best.npz: "
-        f"clean {restored['clean_idx']} certified {restored['certified_idx']} in "
-        f"{secs['18d certify']:.1f} s")
-    if missing or restored["n_images"] != 2:
-        raise RuntimeError(f"18d: missing {missing}, or no certificate of the run")
-    if not (launches["18d"]["fused_rhs"] and launches["18d"]["fused_freq_apply"]):
-        raise RuntimeError(f"18d: the run did not go through K1 and K3: {launches['18d']}")
-
-    # 18e: the same run under torch.distributed.run, one NCCL rank
-    ddp_dir = CLI_DIR / "train_ddp"
-    r = run_cli("18e", [*train_args, "--multihost", "--run-dir", str(ddp_dir)],
-                counted=False,
-                launcher=["torch.distributed.run", "--standalone", "--nproc_per_node=1"])
-    secs["18e"] = r["seconds"]
-    with np.load(train_dir / "ckpt" / "best.npz") as a, \
-            np.load(ddp_dir / "ckpt" / "best.npz") as b:
-        same_keys = sorted(a.files) == sorted(b.files)
-        diff = max(float(np.abs(a[k] - b[k]).max()) for k in a.files) if same_keys else math.inf
-    log(f"[18e multihost] one NCCL rank: best.npz max|d| against 18d {diff:.3e} "
-        f"({'bit-equal' if diff == 0 else 'not bit-equal'}) | "
-        f"'process 0/1' printed: {'[multihost] process 0/1' in r['stdout']} | "
-        f"command {secs['18e']:.1f} s")
-    if not (same_keys and diff <= 1e-6 and "[multihost] process 0/1" in r["stdout"]):
-        raise RuntimeError(f"18e: the one-rank run differs from 18d by {diff}")
-
-    # 18f: segway-certify at r = 0.01 with its figures
-    plot_dir = CLI_DIR / "segway_plots"
-    r = run_cli("18f", ["segway-certify", "--model",
-                        str((SEGWAY_DIR / "segway_f32.npz").relative_to(ROOT)),
-                        "--r", "0.01", "--plot-dir", str(plot_dir)], counted=False)
-    secs["18f"] = r["seconds"]
-    m = re.search(r"cells=(\d+) ub\.max=(\S+) exact\.max=(\S+) certified=(\w+)",
-                  r["stdout"])
-    want = json.loads((SEGWAY_DIR / "segway_f32.json").read_text())["certify"]["0.01"]
-    cells, ub = int(m.group(1)), float(m.group(2))
-    has_mpl = importlib.util.find_spec("matplotlib") is not None
-    figures = sorted(p.name for p in plot_dir.glob("*.png")) if plot_dir.exists() else []
-    near = []
-    if cells != want["n_cells"]:
-        from fiode_tpu_torch.control import load_segway
-        from fiode_tpu_torch.control.lyapunov_ctrl import LyaQuadratic
-        seg = load_segway(SEGWAY_DIR / "segway_f32.npz", dev)
-        near = near_edge_cells(LyaQuadratic(seg["P"], torch.zeros(1, 3, device=dev)),
-                               (want["level_lb"], want["level_ub"]), 0.01,
-                               (float(math.pi / 12), 1.5, 1.5))
-    log(f"[18f segway-certify] r=0.01: cells {cells} (JAX float32 {want['n_cells']}, "
-        f"states at a band edge {len(near) if near else 'not needed'}) ub.max "
-        f"{ub:+.5f} (JAX {want['ub_max']:+.5f}) certified {m.group(4)} (JAX "
-        f"{want['certified']}) | matplotlib {'is' if has_mpl else 'is not'} "
-        f"installed; figures written: {figures} | command {secs['18f']:.1f} s")
-    if (abs(cells - want["n_cells"]) > len(near) or m.group(4) != str(want["certified"])
-            or abs(ub - want["ub_max"]) > SEGWAY_VDOT_TOL):
-        raise RuntimeError("18f: the CLI's Segway certificate is not segway_f32.json's")
-    if has_mpl and figures != ["segway_traj3d.png", "segway_vdot_phase.png"]:
-        raise RuntimeError(f"18f: matplotlib is installed but the figures are {figures}")
 
     # 18g: the Certifier on a mesh of the card: a 1-D mesh [cuda:0, cuda:0]
     # over cells and a 1 x 1 ("img", "cell") mesh against the unsharded
@@ -2312,10 +2496,135 @@ def cli_phase(dev) -> dict:
             if not same:
                 raise RuntimeError(f"18g: {method} on {name} differs from the unsharded sweep")
     secs["18g"] = time.perf_counter() - t0
-    seconds = time.perf_counter() - t_phase
-    log(f"[18 cli] phase 18 in {seconds:.1f} s | "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
-    return {"launches": launches, "seconds": seconds}
+
+    # 18a: CROWN over the whole grid, then summarize-stream of its log
+    r, rs = jobs["18a"].result()
+    secs["18a"], launches["18a"] = r["seconds"], r["launches"]
+    summary = json.loads(Path(f"{crown_log}.json").read_text())
+    want = json.loads((CERT_DIR / "certify_stream_full_rep2.jsonl.json").read_text())
+    expect = [i for i in want["certified_idx"] if i == CLI_CROWN_IMAGE]
+    secs["18a summarize"] = rs["seconds"]
+    folded = json.loads((CLI_DIR / "crown_summary.json").read_text())
+    common = ("n_images", "matmul_precision", "clean_acc", "certified_acc",
+              "certified_idx", "cells_checked")
+    log(f"[18a certify-crown] image {CLI_CROWN_IMAGE}: clean {summary['clean_idx']} "
+        f"certified {summary['certified_idx']} (artifact {expect}) | "
+        f"{summary['cells_checked']:,} image-cells in {summary['seconds']:.1f} s | "
+        f"command {secs['18a']:.1f} s | launches {launches['18a']} | "
+        f"summarize-stream equal on {common}: "
+        f"{all(folded[k] == summary[k] for k in common)}")
+    if summary["clean_idx"] != [CLI_CROWN_IMAGE] or summary["certified_idx"] != expect:
+        raise RuntimeError(f"18a: certified {summary['certified_idx']}, artifact {expect}")
+    if summary["cells_checked"] != CERT_CELLS:
+        raise RuntimeError("18a: the sweep did not cover the grid")
+    if not (launches["18a"]["fused_rhs"] and launches["18a"]["fused_freq_apply"]):
+        raise RuntimeError(f"18a: the clean check missed K1 or K3: {launches['18a']}")
+    if any(folded[k] != summary[k] for k in common):
+        raise RuntimeError(f"18a: summarize-stream {folded} differs from {summary}")
+
+    # 18b: Lipschitz, held to the same sweep in this process and to the
+    # artifact (an image whose worst value lies within CERT_MARGIN of zero
+    # is held by its margin, as in phase 13)
+    lo, hi = CLI_LIPS_IMAGES[0], CLI_LIPS_IMAGES[-1] + 1
+    r = jobs["18b"].result()
+    secs["18b"] = r["seconds"]
+    got = json.loads(Path(f"{lips_log}.json").read_text())
+    art = json.loads((CERT_DIR / "lips_stream_full.jsonl.json").read_text())
+    for key, verdicts, worst in (
+            ("certified_idx", mine.certified, mine.worst),
+            ("larger_T_certified_idx", mine.larger_T_certified, mine.worst_larger_T)):
+        here = [lo + i for i, c in enumerate(verdicts) if c]
+        expect = [i for i in art[key] if lo <= i < hi]
+        log(f"[18b certify-lipschitz] {key}: CLI {got[key]} | in process {here} | "
+            f"artifact {expect} | worst " + " ".join(f"{w:+.4f}" for w in worst))
+        if got[key] != here:
+            raise RuntimeError(f"18b: the CLI's {key} {got[key]} is not {here}")
+        for i, w in zip(range(lo, hi), worst):
+            if (i in here) != (i in expect) and abs(w) > CERT_MARGIN:
+                raise RuntimeError(f"18b: image {i} (worst {w}) differs from the artifact")
+    log(f"[18b certify-lipschitz] command {secs['18b']:.1f} s")
+
+    # 18c: attacks at the attack protocol's t_max 0.1, max_steps 8; no
+    # certified image (every one but the open ones) may be broken
+    r = jobs["18c"].result()
+    secs["18c"], launches["18c"] = r["seconds"], r["launches"]
+    aa = json.loads(aa_out.read_text())
+    jax_fields = set(json.loads((CERT_DIR / "autoattack_full_standard_512_tmax01.json")
+                                .read_text()))
+    open_images = set(json.loads((CERT_DIR / "refine_accounting.json").read_text())
+                      ["open_images"])
+    broken = [i for i in range(CLI_ATTACK_IMAGES)
+              if i not in aa["robust_idx"] and i not in open_images]
+    log(f"[18c eval-autoattack] {aa['attacks']} on {aa['n_images']} images: robust "
+        f"{len(aa['robust_idx'])}/{aa['n_images']} in {aa['seconds']:.1f} s, max "
+        f"attempts {aa['max_attempts']} of {aa['max_steps']} | certified broken: "
+        f"{broken} | JAX artifact fields missing: {sorted(jax_fields - set(aa))} | "
+        f"command {secs['18c']:.1f} s | launches {launches['18c']}")
+    if broken or jax_fields - set(aa) or aa["n_images"] != CLI_ATTACK_IMAGES:
+        raise RuntimeError(f"18c: broken {broken}, missing {jax_fields - set(aa)}")
+    if min(launches["18c"].values()) == 0:
+        raise RuntimeError(f"18c: a kernel was not launched by the attacks: "
+                           f"{launches['18c']}")
+
+    # 18d: one epoch of cifar_train.yaml at full width on the synthetic set,
+    # then certify-lipschitz restoring the run's own best.npz
+    r, rc = jobs["18d"].result()
+    secs["18d train"], launches["18d"] = r["seconds"], r["launches"]
+    missing = [f for f in ("metrics.jsonl", "ckpt/best.npz", "ckpt/resume.pt")
+               if not (train_dir / f).exists()]
+    secs["18d certify"] = rc["seconds"]
+    restored = json.loads((CLI_DIR / "train_lips.jsonl.json").read_text())
+    log(f"[18d train] one epoch in {secs['18d train']:.1f} s (command) | missing "
+        f"{missing} | launches {launches['18d']} | certify-lipschitz of its best.npz: "
+        f"clean {restored['clean_idx']} certified {restored['certified_idx']} in "
+        f"{secs['18d certify']:.1f} s")
+    if missing or restored["n_images"] != 2:
+        raise RuntimeError(f"18d: missing {missing}, or no certificate of the run")
+    if not (launches["18d"]["fused_rhs"] and launches["18d"]["fused_freq_apply"]):
+        raise RuntimeError(f"18d: the run did not go through K1 and K3: {launches['18d']}")
+
+    # 18e: the same run under torch.distributed.run, one NCCL rank
+    r = jobs["18e"].result()
+    secs["18e"] = r["seconds"]
+    with np.load(train_dir / "ckpt" / "best.npz") as a, \
+            np.load(ddp_dir / "ckpt" / "best.npz") as b:
+        same_keys = sorted(a.files) == sorted(b.files)
+        diff = max(float(np.abs(a[k] - b[k]).max()) for k in a.files) if same_keys else math.inf
+    log(f"[18e multihost] one NCCL rank: best.npz max|d| against 18d {diff:.3e} "
+        f"({'bit-equal' if diff == 0 else 'not bit-equal'}) | "
+        f"'process 0/1' printed: {'[multihost] process 0/1' in r['stdout']} | "
+        f"command {secs['18e']:.1f} s")
+    if not (same_keys and diff <= 1e-6 and "[multihost] process 0/1" in r["stdout"]):
+        raise RuntimeError(f"18e: the one-rank run differs from 18d by {diff}")
+
+    # 18f: segway-certify at r = 0.01 with its figures
+    r = jobs["18f"].result()
+    secs["18f"] = r["seconds"]
+    m = re.search(r"cells=(\d+) ub\.max=(\S+) exact\.max=(\S+) certified=(\w+)",
+                  r["stdout"])
+    want = json.loads((SEGWAY_DIR / "segway_f32.json").read_text())["certify"]["0.01"]
+    cells, ub = int(m.group(1)), float(m.group(2))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    figures = sorted(p.name for p in plot_dir.glob("*.png")) if plot_dir.exists() else []
+    near = []
+    if cells != want["n_cells"]:
+        from fiode_tpu_torch.control import load_segway
+        from fiode_tpu_torch.control.lyapunov_ctrl import LyaQuadratic
+        seg = load_segway(SEGWAY_DIR / "segway_f32.npz", dev)
+        near = near_edge_cells(LyaQuadratic(seg["P"], torch.zeros(1, 3, device=dev)),
+                               (want["level_lb"], want["level_ub"]), 0.01,
+                               (float(math.pi / 12), 1.5, 1.5))
+    log(f"[18f segway-certify] r=0.01: cells {cells} (JAX float32 {want['n_cells']}, "
+        f"states at a band edge {len(near) if near else 'not needed'}) ub.max "
+        f"{ub:+.5f} (JAX {want['ub_max']:+.5f}) certified {m.group(4)} (JAX "
+        f"{want['certified']}) | matplotlib {'is' if has_mpl else 'is not'} "
+        f"installed; figures written: {figures} | command {secs['18f']:.1f} s")
+    if (abs(cells - want["n_cells"]) > len(near) or m.group(4) != str(want["certified"])
+            or abs(ub - want["ub_max"]) > SEGWAY_VDOT_TOL):
+        raise RuntimeError("18f: the CLI's Segway certificate is not segway_f32.json's")
+    if has_mpl and figures != ["segway_traj3d.png", "segway_vdot_phase.png"]:
+        raise RuntimeError(f"18f: matplotlib is installed but the figures are {figures}")
+
 
 
 # phase 19: the example drivers, python -m fiode_tpu_torch.examples.<name>,
@@ -2729,6 +3038,7 @@ def main() -> None:
             certify_phases(dev)
         elif only_train:
             train_phase(dev)
+            train_modes_phase(dev)
         elif phases == "attack":
             attack_phase(dev)
         elif phases == "cli":
@@ -3019,6 +3329,8 @@ def main() -> None:
     # 15. Lyapunov certified training -----------------------------------------
     train = train_phase(dev)
     torch.cuda.empty_cache()
+    modes = train_modes_phase(dev)
+    torch.cuda.empty_cache()
 
     # 16. the Segway safe controller (no TPU kernel on its path) ---------------
     seg = segway_phase(dev, smi)
@@ -3046,6 +3358,7 @@ def main() -> None:
                        "13 certify lipschitz": cert["lipschitz"]["launches"][name],
                        "14 refine": cert["refine"]["launches"][name],
                        "15 train": train["launches"][name],
+                       "15f train modes": modes["launches"][name],
                        "17 solvers and adjoint": ode["launches"][name],
                        "18a certify-crown CLI": cli["launches"]["18a"][name],
                        "18c eval-autoattack CLI": cli["launches"]["18c"][name],
