@@ -182,8 +182,9 @@ import torch
 
 try:  # the package beside this script; nothing else of the repo is imported
     from fiode_tpu_torch._bench_common import (card, conv_bound, counts, cuda_ms,
-                                               device_breakdown, kernel_ms,
-                                               plain_freq_apply, plain_path,
+                                               device_breakdown, is_device_op,
+                                               kernel_ms, plain_freq_apply,
+                                               plain_path, range_names,
                                                reset_counts, rhs_bound)
 except ModuleNotFoundError as e:
     raise SystemExit(f"chip_smoke: no fiode_tpu_torch package beside {__file__} ({e})")
@@ -421,9 +422,9 @@ def k3_backward_phase(model, dev) -> dict:
             return lambda: torch.autograd.grad(apply(x, Qr, Qi), x, g)[0]
 
         kern = grads(K3_BWD_BATCH, 40 + i, fused_freq_apply)
-        before = fused_freq_apply.launches
+        before = counts()["fused_freq_apply"]
         dx = kern()
-        if fused_freq_apply.launches != before + 2:
+        if counts()["fused_freq_apply"] != before + 2:
             raise RuntimeError("K3 backward did not launch K3 on Q^H")
         want = grads(K3_BWD_BATCH, 40 + i, plain_freq_apply)()
         torch.cuda.synchronize()
@@ -937,14 +938,14 @@ def lipschitz_phase(model, grid, x, y, dev) -> dict:
         for which in (0, len(blocks) - 1):
             etas, valids, n_valid = blocks[which]
             start = torch.full((len(idx),), float("-inf"), device=dev)
-            before = fused_rhs.launches
+            before = counts()["fused_rhs"]
             wk = cert.lips_block(p, xc_rows, ys, perms, etas, valids,
                                  (start, start.clone()))
-            k1 = fused_rhs.launches - before
+            k1 = counts()["fused_rhs"] - before
             with mock.patch.object(certify_module, "fused_rhs", rhs_reference):
                 wp = cert.lips_block(p, xc_rows, ys, perms, etas, valids,
                                      (start, start.clone()))
-            if fused_rhs.launches - before != k1 or k1 != etas.shape[0]:
+            if counts()["fused_rhs"] - before != k1 or k1 != etas.shape[0]:
                 raise RuntimeError(f"K1 launches of one block: {k1}")
             err = max((a - b).abs().max().item() for a, b in zip(wk, wp))
             block_err = max(block_err, err)
@@ -1198,11 +1199,13 @@ TRAIN_DIR = ROOT / "build" / "train_smoke"
 K3_KERNELS = ("rdft", "mix_kernel")  # the names of K3's three launches
 
 
-def _kernels_under(e) -> list:
-    """(name, ms) of every kernel launched by event ``e`` or its children."""
-    out = [(k.name, k.duration / 1e3) for k in getattr(e, "kernels", [])]
+def _kernels_under(e, ranges: set) -> list:
+    """(name, ms) of every kernel launched by event ``e`` or its children,
+    less the device-side copies of the record_function ``ranges``."""
+    out = [(k.name, k.duration / 1e3) for k in getattr(e, "kernels", [])
+           if k.name not in ranges]
     for c in e.cpu_children:
-        out += _kernels_under(c)
+        out += _kernels_under(c, ranges)
     return out
 
 
@@ -1222,12 +1225,13 @@ def _dev_ms(e) -> float:
 
 def train_step_breakdown(step) -> dict:
     """One call of ``step`` under torch.profiler: wall ms, device-busy ms,
-    device events, and (device ms, kernels) by stage.  Forward
-    stages are the trainer's record_function ranges (train.*), with the
-    Cayley solves and K3 inside them listed again; the backward (autograd's
-    own thread) is split by autograd node: the conv backward into K3 on
-    Q^H and dQ (the dense-DFT VJP), the solves' backward, and the rest
-    (the eval_dot, jvp / loss and linear layers' backward)."""
+    device events, and (device ms, kernels) by stage.  Forward stages are
+    the trainer's spans (train.*, less the root train.step that holds them
+    all), with the Cayley solves and K3 inside them listed again; the
+    backward (autograd's own thread) is split by autograd node: the conv
+    backward into K3 on Q^H and dQ (the dense-DFT VJP), the solves'
+    backward, and the rest (the eval_dot, jvp / loss and linear layers'
+    backward)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1245,25 +1249,25 @@ def train_step_breakdown(step) -> dict:
         return [(k, t) for k, t in ks if any(x in k for x in K3_KERNELS) == keep]
 
     busy, n_kernels = 0.0, 0
-    for e in prof.events():
+    events = prof.events()
+    ranges = range_names(events)
+    for e in events:
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            # the device-side spans of the train.* ranges are no kernels
-            if not (getattr(e, "is_user_annotation", False)
-                    or e.name.startswith("train.")):
+            if is_device_op(e, ranges):
                 busy += e.time_range.elapsed_us() / 1e3
                 n_kernels += 1
             continue
-        if e.name.startswith("train."):
-            ks = _kernels_under(e)
+        if e.name.startswith("train.") and e.name != "train.step":
+            ks = _kernels_under(e, ranges)
             add(e.name, ks)
             if e.name == "train.backbone":
                 add("  of it K3 forward", k3(ks))
         elif e.name == "aten::linalg_solve" and not _in_backward(e):
-            add("  of it cayley solves (forward)", _kernels_under(e))
+            add("  of it cayley solves (forward)", _kernels_under(e, ranges))
         elif e.name.startswith("autograd::engine::evaluate_function: ") \
                 and not _in_backward(e):
             node = e.name.split(": ", 1)[1]
-            ks = _kernels_under(e)
+            ks = _kernels_under(e, ranges)
             if "FusedFreqApply" in node:
                 add("backward: K3 on Q^H", k3(ks))
                 add("backward: dQ (dense-DFT VJP)", k3(ks, keep=False))
@@ -1830,12 +1834,10 @@ def control_step_profile(step) -> dict:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     by_name: dict = {}
-    for e in prof.events():
-        # the device-side spans of record_function ranges (the optimizer's
-        # own) are no kernels
-        if (str(getattr(e, "device_type", "")).endswith("CUDA")
-                and not getattr(e, "is_user_annotation", False)
-                and not e.name.startswith("Optimizer.")):
+    events = prof.events()
+    ranges = range_names(events)
+    for e in events:
+        if is_device_op(e, ranges):
             ms, n = by_name.get(e.name[:60], (0.0, 0))
             by_name[e.name[:60]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])

@@ -18,7 +18,7 @@ import torch
 
 __all__ = ["FP32_FLOPS", "TF32_FLOPS", "HBM_BYTES", "bound_ms", "conv_bound",
            "rhs_flops", "rhs_bound", "cuda_ms", "kernel_ms",
-           "device_breakdown", "counts", "reset_counts", "plain_freq_apply",
+           "range_names", "is_device_op", "device_breakdown", "counts", "reset_counts", "plain_freq_apply",
            "plain_rhs_vjp", "plain_path", "card", "require_cuda"]
 
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): float32
@@ -106,6 +106,25 @@ def kernel_ms(fn, tags: tuple, iters: int = 20) -> float:
     return us / 1e3 / iters if us > 0 else cuda_ms(fn, iters)
 
 
+def range_names(events) -> set:
+    """The names of the profiler ranges (the program's spans, the
+    optimizer's own) among a profiler's events.  Each range also shows on
+    the device's timeline, as an event of its name that is no device
+    operation and may lack the user-annotation flag."""
+    return {e.name for e in events
+            if not str(getattr(e, "device_type", "")).endswith("CUDA")
+            and getattr(e, "is_user_annotation", False)}
+
+
+def is_device_op(e, ranges: set) -> bool:
+    """Whether profiler event ``e`` is an operation of the device's own (a
+    kernel, copy or set), not a range's copy: ``ranges`` from
+    ``range_names``."""
+    return (str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in ranges)
+
+
 def device_breakdown(fn, top: int = 8, top_ops: int = 14) -> tuple:
     """Run fn once under torch.profiler: (wall ms, device-busy ms, the top
     kernels as (name, ms), the top operators as (name, input shapes, calls,
@@ -113,7 +132,9 @@ def device_breakdown(fn, top: int = 8, top_ops: int = 14) -> tuple:
     so that no time is counted twice through the ops that launched them; an
     operator's time is that of the kernels it launched itself (not its
     children's), grouped by operator and input shapes.  Kernels launched
-    outside any PyTorch operator (K1, K3) appear only among the kernels."""
+    outside any PyTorch operator (K1, K3) appear only among the kernels.
+    The device-side copies of profiler ranges are left out of
+    both."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -121,12 +142,15 @@ def device_breakdown(fn, top: int = 8, top_ops: int = 14) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
+    ranges = range_names(prof.events())
     rows = [(e.key, _device_us(e) / 1e3) for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.key not in ranges]
     rows.sort(key=lambda r: -r[1])
     ops = []
     for e in prof.key_averages(group_by_input_shape=True):
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                or e.key in ranges):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -137,19 +161,27 @@ def device_breakdown(fn, top: int = 8, top_ops: int = 14) -> tuple:
     return wall, sum(ms for _, ms in rows), rows[:top], ops[:top_ops]
 
 
+# each kernel wrapper's launch counter (utils/tracing.py) by the name these
+# programs report it under
+LAUNCH_COUNTERS = {"fused_rhs": "k1.launches",
+                   "fused_rhs_backward": "k2.launches",
+                   "fused_freq_apply": "k3.launches"}
+_counted_from = dict.fromkeys(LAUNCH_COUNTERS.values(), 0)
+
+
 def counts() -> dict:
-    """Each kernel wrapper's launches so far in this process."""
-    from .ops.fused_cayley_conv import fused_freq_apply
-    from .ops.fused_rhs import fused_rhs, fused_rhs_vjp
-    return {"fused_rhs": fused_rhs.launches,
-            "fused_rhs_backward": fused_rhs_vjp.launches,
-            "fused_freq_apply": fused_freq_apply.launches}
+    """Each kernel wrapper's launches since the last ``reset_counts()`` (or
+    the process's start)."""
+    from .utils.tracing import counters
+    now = counters()
+    return {k: now.get(c, 0) - _counted_from[c]
+            for k, c in LAUNCH_COUNTERS.items()}
 
 
 def reset_counts() -> None:
-    from .ops.fused_cayley_conv import fused_freq_apply
-    from .ops.fused_rhs import fused_rhs, fused_rhs_vjp
-    fused_rhs.launches = fused_rhs_vjp.launches = fused_freq_apply.launches = 0
+    from .utils.tracing import counters
+    now = counters()
+    _counted_from.update({c: now.get(c, 0) for c in _counted_from})
 
 
 def plain_freq_apply(x, Qr, Qi):

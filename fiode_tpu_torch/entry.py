@@ -227,11 +227,10 @@ def _dryrun_work(rank, n, dev, mesh_devs, out_dir) -> dict:
     import numpy as np
     import torch.distributed as dist
 
+    from ._bench_common import counts
     from .attacks.apgd import apgd_ce
     from .experiment import BudgetedForward
     from .models.backbones import TinyMLPBackbone
-    from .ops.fused_cayley_conv import fused_freq_apply
-    from .ops.fused_rhs import fused_rhs, fused_rhs_vjp
     from .parallel.multihost import shard_rows
     from .train.trainer import frozen
 
@@ -279,9 +278,7 @@ def _dryrun_work(rank, n, dev, mesh_devs, out_dir) -> dict:
     report["apgd_rows"] = len(xa)
     report["apgd_success"] = int(success.sum())
     report["apgd_max_attempts"] = forward.max_attempts
-    report["launches"] = {"fused_rhs": fused_rhs.launches,
-                          "fused_rhs_backward": fused_rhs_vjp.launches,
-                          "fused_freq_apply": fused_freq_apply.launches}
+    report["launches"] = counts()
     return report
 
 

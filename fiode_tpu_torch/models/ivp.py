@@ -42,6 +42,7 @@ from torch import nn
 from ..ode.adjoint import odeint_adjoint
 from ..ode.integrate import OdeSolution, odeint
 from ..ops.fused_rhs import RhsParams, fused_rhs, fused_rhs_vjp, pack_rhs_params
+from ..utils.tracing import span
 from .dynamics import SimplexDynamics, densify_dynamics_params
 
 __all__ = ["NeuralODEClassifier", "LinearOutput"]
@@ -135,13 +136,14 @@ class NeuralODEClassifier(nn.Module):
     def _fused_setup(self, feats):
         """Dense RHS weights and the input injection xc (B, mlp), once per
         solve (ReLU dynamics)."""
-        dense = densify_dynamics_params(self.dynamics)
-        W1, b1 = dense["hidden_to_mlp"]
-        U, bU = dense["U_x"]
-        W2, b2 = dense["mlp_to_mlp"]
-        W3, b3 = dense["mlp_to_hidden"]
-        p = pack_rhs_params(W1, W2, W3, b2, b3)
-        xc = (torch.matmul(feats, U.T) + bU + b1).contiguous()
+        with span("ivp.inject"):
+            dense = densify_dynamics_params(self.dynamics)
+            W1, b1 = dense["hidden_to_mlp"]
+            U, bU = dense["U_x"]
+            W2, b2 = dense["mlp_to_mlp"]
+            W3, b3 = dense["mlp_to_hidden"]
+            p = pack_rhs_params(W1, W2, W3, b2, b3)
+            xc = (torch.matmul(feats, U.T) + bU + b1).contiguous()
         return p, xc
 
     def _adjoint_fused(self, feats, h0, ts, consts, solver, stats):
@@ -197,38 +199,49 @@ class NeuralODEClassifier(nn.Module):
         ``adjoint_stats`` (a dict) then receives its counts
         (``odeint_adjoint``'s ``stats``).  ``process_group``: x is this
         process's rows of a batch spread over the group, whose adaptive
-        step control is the whole batch's (``odeint``)."""
-        dyn = self.dynamics
-        feats = self.features(x)
-        sn = dyn.scale_nominal if scale_nominal is None else scale_nominal
-        solver = dict(
-            method=method or self.method,
-            rtol=self.rtol if rtol is None else rtol,
-            atol=self.atol if atol is None else atol,
-            step_size=step_size, max_steps=self.max_steps)
-        if ts is None:
-            ts = [0.0, self.t_max]
-        h0 = self.h0(x.shape[0], x.device)
-        consts = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, sn, dyn.qp_iters)
-        if use_adjoint:
-            if process_group is not None:
-                raise ValueError("the adjoint solve takes no process_group")
-            stats = {} if adjoint_stats is None else adjoint_stats
+        step control is the whole batch's (``odeint``).  Traced as the root
+        span ``ivp.solve`` holding ``ivp.backbone`` and ``ivp.inject``
+        (``utils/tracing.py``)."""
+        with span("ivp.solve"):
+            dyn = self.dynamics
+            with span("ivp.backbone"):
+                feats = self.features(x)
+            sn = (dyn.scale_nominal if scale_nominal is None
+                  else scale_nominal)
+            solver = dict(
+                method=method or self.method,
+                rtol=self.rtol if rtol is None else rtol,
+                atol=self.atol if atol is None else atol,
+                step_size=step_size, max_steps=self.max_steps)
+            if ts is None:
+                ts = [0.0, self.t_max]
+            h0 = self.h0(x.shape[0], x.device)
+            consts = (dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, sn,
+                      dyn.qp_iters)
+            if use_adjoint:
+                if process_group is not None:
+                    raise ValueError(
+                        "the adjoint solve takes no process_group")
+                stats = {} if adjoint_stats is None else adjoint_stats
+                if dyn.activation == "ReLU":
+                    ys = self._adjoint_fused(feats, h0, ts, consts, solver,
+                                             stats)
+                else:
+                    ys = self._adjoint_eval_dot(feats, h0, ts, sn, solver,
+                                                stats)
+                fwd = stats["forward"]
+                return OdeSolution(ys, fwd.nfe, fwd.n_accepted,
+                                   fwd.n_rejected)
             if dyn.activation == "ReLU":
-                ys = self._adjoint_fused(feats, h0, ts, consts, solver, stats)
-            else:
-                ys = self._adjoint_eval_dot(feats, h0, ts, sn, solver, stats)
-            fwd = stats["forward"]
-            return OdeSolution(ys, fwd.nfe, fwd.n_accepted, fwd.n_rejected)
-        if dyn.activation == "ReLU":
-            p, xc = self._fused_setup(feats)
+                p, xc = self._fused_setup(feats)
 
-            def f(t, h):
-                return fused_rhs(h, xc, p, *consts)
-        else:
-            def f(t, h):
-                return dyn.eval_dot(h, feats, train=False, scale_nominal=sn)
-        return odeint(f, h0, ts, process_group=process_group, **solver)
+                def f(t, h):
+                    return fused_rhs(h, xc, p, *consts)
+            else:
+                def f(t, h):
+                    return dyn.eval_dot(h, feats, train=False,
+                                        scale_nominal=sn)
+            return odeint(f, h0, ts, process_group=process_group, **solver)
 
     def predict(self, x, **kw):
         """The outputs at t_max; ``kw`` go to ``solve``."""

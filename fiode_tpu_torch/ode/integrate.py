@@ -21,7 +21,11 @@ torchdiffeq semantics, as in the JAX package:
 ``t``, the step ``h`` and the error ratio stay float32 tensors on the
 state's device, so accept/reject decisions match the float32 JAX solver.
 The host reads one value pair per attempted step (the error ratio and the
-candidate time), which decides acceptance.
+candidate time), which decides acceptance.  Traced (``utils/tracing.py``)
+as the spans ``odeint.first_step`` (f(t0, y0) and the first-step
+heuristic) and ``odeint.attempt`` (one attempted step, its error ratio,
+the host read ``odeint.host_read`` and the decision); the rejected
+steps are counted as ``odeint.rejected``.
 
 Fixed-grid methods (euler, midpoint, rk4, explicit_adams, implicit_adams,
 fixed_adams) step from ts[i] to ts[i+1] in ceil(dt / step_size (1 - 1e-4))
@@ -58,6 +62,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.tracing import count, span
 from .tableaus import FIXED_SOLVERS, Tableau, get_tableau
 
 __all__ = ["OdeSolution", "odeint", "rms_error_ratio"]
@@ -185,33 +190,40 @@ def _adaptive(tab: Tableau, f, y0, ts, ts_host, rtol, atol, max_steps,
     n_out = len(ts_host)
     t = ts[0]
     t_final = ts[-1]
-    fval = f(t, y0)
-    h = _initial_step(f, t, y0, fval, tab.order, rtol, atol, error_weight,
-                      group)
+    with span("odeint.first_step"):
+        fval = f(t, y0)
+        h = _initial_step(f, t, y0, fval, tab.order, rtol, atol,
+                          error_weight, group)
     y = y0
     ys = [y0] + [None] * (n_out - 1)
     out_idx, nfe, n_acc, n_rej = 1, 2, 0, 0
     while out_idx < n_out and n_acc + n_rej < max_steps:
-        h = torch.minimum(h, t_final - t)
-        y1, f1, err = _rk_step(tab, f, t, y, fval, h, group)
-        ratio = rms_error_ratio(err, rtol, atol, y, y1, error_weight, group)
-        t1 = t + h
-        # the one host read of the step
-        ratio_host, t1_host = torch.stack([ratio, t1]).tolist()
-        nfe += len(tab.b) - 1
-        h_new = _next_step_size(h, ratio, tab.order)
-        if ratio_host <= 1.0:
-            n_acc += 1
-            if not tab.fsal:  # f(t1, y1), evaluated and counted on acceptance
-                f1 = f(t1, y1)
-                nfe += 1
-            while out_idx < n_out and ts_host[out_idx] <= t1_host:
-                ys[out_idx] = _hermite(ts[out_idx], t, y, fval, t1, y1, f1)
-                out_idx += 1
-            t, y, fval = t1, y1, f1
-        else:
-            n_rej += 1
-        h = h_new
+        with span("odeint.attempt"):
+            h = torch.minimum(h, t_final - t)
+            y1, f1, err = _rk_step(tab, f, t, y, fval, h, group)
+            ratio = rms_error_ratio(err, rtol, atol, y, y1, error_weight,
+                                    group)
+            t1 = t + h
+            # the one host read of the step
+            with span("odeint.host_read"):
+                ratio_host, t1_host = torch.stack([ratio, t1]).tolist()
+            nfe += len(tab.b) - 1
+            h_new = _next_step_size(h, ratio, tab.order)
+            if ratio_host <= 1.0:
+                n_acc += 1
+                if not tab.fsal:
+                    # f(t1, y1), evaluated and counted on acceptance
+                    f1 = f(t1, y1)
+                    nfe += 1
+                while out_idx < n_out and ts_host[out_idx] <= t1_host:
+                    ys[out_idx] = _hermite(ts[out_idx], t, y, fval, t1, y1,
+                                           f1)
+                    out_idx += 1
+                t, y, fval = t1, y1, f1
+            else:
+                n_rej += 1
+                count("odeint.rejected")
+            h = h_new
     ys = [y if yi is None else yi for yi in ys]
     return OdeSolution(torch.stack(ys), nfe, n_acc, n_rej)
 

@@ -23,6 +23,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.tracing import span
+
 __all__ = [
     "cayley",
     "cayley_linear_kernel",
@@ -44,26 +46,30 @@ def cayley(W: torch.Tensor) -> torch.Tensor:
     split into U (ci x ci) and V, A = U - U^H + V^H V, and stack
     [(I + A)^{-1}(I - A); -2 V (I + A)^{-1}] (orthonormal columns).  Wide W
     (co < ci) uses the conjugate-transposed construction.
+
+    Traced as the span ``cayley``.
     """
-    squeeze = W.ndim == 2
-    if squeeze:
-        W = W[None]
-    _, co, ci = W.shape
-    transposed = co < ci
-    if transposed:
-        W = _herm(W)
-        co, ci = ci, co
-    U = W[:, :ci, :]
-    V = W[:, ci:, :]
-    eye = torch.eye(ci, dtype=W.dtype, device=W.device)
-    A = U - _herm(U) + _herm(V) @ V
-    # one factorisation serves both blocks: (I+A)^{-1}(I-A) = 2(I+A)^{-1} - I
-    X = torch.linalg.solve(eye + A, eye.expand_as(A))
-    Q = torch.cat([2.0 * X - eye, -2.0 * (V @ X)], dim=-2)
-    if transposed:
-        Q = _herm(Q)
-    Q = Q.resolve_conj()
-    return Q[0] if squeeze else Q
+    with span("cayley"):
+        squeeze = W.ndim == 2
+        if squeeze:
+            W = W[None]
+        _, co, ci = W.shape
+        transposed = co < ci
+        if transposed:
+            W = _herm(W)
+            co, ci = ci, co
+        U = W[:, :ci, :]
+        V = W[:, ci:, :]
+        eye = torch.eye(ci, dtype=W.dtype, device=W.device)
+        A = U - _herm(U) + _herm(V) @ V
+        # one factorisation serves both blocks:
+        # (I+A)^{-1}(I-A) = 2(I+A)^{-1} - I
+        X = torch.linalg.solve(eye + A, eye.expand_as(A))
+        Q = torch.cat([2.0 * X - eye, -2.0 * (V @ X)], dim=-2)
+        if transposed:
+            Q = _herm(Q)
+        Q = Q.resolve_conj()
+        return Q[0] if squeeze else Q
 
 
 def cayley_linear_kernel(W: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

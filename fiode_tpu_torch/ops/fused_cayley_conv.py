@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ._build import load_library
 from .cayley import apply_freq_matrices
 
@@ -121,7 +122,7 @@ def _launch(x, Qr, Qi, adjoint=False):
     if rc != 0:
         msg = lib.fused_cayley_conv_error_string(rc).decode()
         raise RuntimeError(f"fused_freq_apply kernel failed: {msg}")
-    fused_freq_apply.launches += 1
+    tracing.count("k3.launches")
     return out
 
 
@@ -153,7 +154,7 @@ def fused_freq_apply(x: torch.Tensor, Qr: torch.Tensor,
     (B, co, n, n).
 
     A CPU tensor takes the plain dense-DFT version; a CUDA tensor launches
-    K3 (and adds one to ``fused_freq_apply.launches``) or raises.  On CUDA
+    K3 (counted as ``k3.launches``, ``utils/tracing.py``) or raises.  On CUDA
     the backward in x launches K3 once more, on Q^H (and counts it).
     """
     if x.device.type == "cpu":
@@ -162,5 +163,3 @@ def fused_freq_apply(x: torch.Tensor, Qr: torch.Tensor,
         raise ValueError(f"fused_freq_apply: unsupported device {x.device}")
     return _FusedFreqApplyCuda.apply(x, Qr, Qi)
 
-
-fused_freq_apply.launches = 0

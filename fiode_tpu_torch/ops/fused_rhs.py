@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from ._build import load_library
 from .simplex_qp import cone_project_mu, simplex_cone_project
 
@@ -344,7 +345,7 @@ def _launch(h, xc, p: RhsParams, alpha_1, sigma_1, alpha_2, scale_nominal,
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     _raise_on(lib, rc, "fused_rhs")
-    fused_rhs.launches += 1
+    tracing.count("k1.launches")
     return out
 
 
@@ -388,7 +389,7 @@ def _launch_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1, alpha_2,
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     _raise_on(lib, rc, "fused_rhs_vjp")
-    fused_rhs_vjp.launches += 1
+    tracing.count("k2.launches")
     if dw is None:
         return dh, dxc, None
     sizes = (m * n, m * m, n * m, m, n)
@@ -405,9 +406,9 @@ def fused_rhs_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1, alpha_2,
     gradients or None when ``weight_grads`` is False).
 
     A CPU tensor takes ``rhs_vjp_reference``; a CUDA tensor launches K2
-    (and adds one to ``fused_rhs_vjp.launches``) or raises.  Without weight
-    gradients K2 has no staging buffers, no block-wide barrier and no
-    reduction launch.
+    (counted as ``k2.launches``, ``utils/tracing.py``) or raises.  Without
+    weight gradients K2 has no staging buffers, no block-wide barrier and
+    no reduction launch.
     """
     if h.device.type == "cpu":
         dh, dxc, dp = rhs_vjp_reference(h, xc, g, p, alpha_1, sigma_1,
@@ -418,8 +419,6 @@ def fused_rhs_vjp(h, xc, g, p: RhsParams, alpha_1, sigma_1, alpha_2,
     return _launch_vjp(h, xc, g, p, alpha_1, sigma_1, alpha_2, scale_nominal,
                        qp_iters, weight_grads)
 
-
-fused_rhs_vjp.launches = 0
 
 
 class _FusedRhsCuda(torch.autograd.Function):
@@ -451,9 +450,9 @@ def fused_rhs(h, xc, p: RhsParams, alpha_1, sigma_1, alpha_2,
               scale_nominal: bool = False, qp_iters: int = 30):
     """One RHS evaluation: h (B, n), xc (B, mlp) -> (B, n).
 
-    A CPU tensor takes ``rhs_reference``; a CUDA tensor launches K1 (and
-    adds one to ``fused_rhs.launches``) or raises.  Its backward on CUDA
-    is ``fused_rhs_vjp`` (kernel K2).
+    A CPU tensor takes ``rhs_reference``; a CUDA tensor launches K1
+    (counted as ``k1.launches``, ``utils/tracing.py``) or raises.  Its
+    backward on CUDA is ``fused_rhs_vjp`` (kernel K2).
     """
     if h.device.type == "cpu":
         return rhs_reference(h, xc, p, alpha_1, sigma_1, alpha_2,
@@ -463,5 +462,3 @@ def fused_rhs(h, xc, p: RhsParams, alpha_1, sigma_1, alpha_2,
     return _FusedRhsCuda.apply(h, xc, *p, getattr(p, "packed", None), alpha_1,
                                sigma_1, alpha_2, scale_nominal, qp_iters)
 
-
-fused_rhs.launches = 0

@@ -63,7 +63,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from ..attacks.pgd import pgd_attack
 from ..models.ivp import NeuralODEClassifier
@@ -71,6 +70,7 @@ from ..parallel.multihost import process_rows, rank_and_size, shard_rows
 from ..utils import plotting
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricWriter
+from ..utils.tracing import span
 from .data import Dataset, augment_batch, augment_draws
 from .lips import compute_lfx, lfx_init
 from .lyapunov import (
@@ -270,7 +270,7 @@ class LyapunovTrainer:
             return loss, dict.fromkeys(METRICS, zero) | {"loss": loss.detach()}
 
         B, S, n = x.shape[0], cfg.h_sample_size, self.n
-        with record_function("train.backbone"):
+        with span("train.backbone"):
             feats = model.features(x)
         extra = {}
         if "TrajectorySampler" in cfg.sampler_names:
@@ -283,19 +283,19 @@ class LyapunovTrainer:
                                           generator=self.gen,
                                           device=self.device), B, self.shard)
                 for name in cfg.sampler_names]
-        with record_function("train.sampler"):
+        with span("train.sampler"):
             h = composite_sample(
                 cfg.sampler_names, mixer, y, n, S, h_dist_lim=cfg.h_dist_lim,
                 generator=self.gen, draws=samples, **extra,
             ).reshape(B * S, n).detach()
         x_in = feats[:, None, :].expand(B, S, feats.shape[-1]).reshape(B * S, -1)
         y_in = y.repeat_interleave(S)
-        with record_function("train.eval_dot"):
+        with span("train.eval_dot"):
             f = model.eval_dot(h, x_in, train=True, generator=self.gen,
                                scale_nominal=scale_nominal, shard=self.shard)
             f_tilde = model.raw_dot(h, x_in) if cfg.barrier_loss else None
         dyn = model.dynamics
-        with record_function("train.lyapunov_loss"):
+        with span("train.lyapunov_loss"):
             return lyapunov_loss(
                 h=h, f=f, f_tilde=f_tilde, y=y_in, lya_cand=self.lya,
                 output_fn=model.output_fn, current_kappa=kappa,
@@ -323,56 +323,62 @@ class LyapunovTrainer:
                     scale_nominal: bool, draws: Optional[dict] = None):
         """One optimizer step on the batch (x, y); returns (loss, metrics),
         device tensors.  ``draws`` may give "augment" (offsets, flips) and
-        "samples" (each sampler's base draws) in place of the generator's."""
-        cfg, model = self.cfg, self.model
-        draws = draws or {}
-        if cfg.augment and self.ds.name.startswith("CIFAR"):
-            # crop and flip are CIFAR-only in the reference's transforms
-            aug = draws.get("augment")
-            if aug is None and self.shard is not None:
-                aug = shard_rows(
-                    lambda m: augment_draws(m, self.gen, self.device),
-                    len(x), self.shard)
-            with record_function("train.augment"):
-                x = augment_batch(x, self.gen, aug)
-        if cfg.lips_train and self.lfx_state is not None:
-            Lfx, self.lfx_state = compute_lfx(model.backbone, self.lfx_state,
-                                              self.ds.image_shape)
-            kappa = lips_kappa(step, model.dynamics.kappa,
-                               model.dynamics.kappa_length, cfg.eps, Lfx,
-                               cfg.lips_warmup)
-        else:
-            Lfx = torch.ones((), device=self.device)
-            kappa = anneal_kappa(step, model.dynamics.kappa,
-                                 model.dynamics.kappa_length)
-        if cfg.adv_train:
-            # every evaluation of the objective in this step draws the same
-            # samples and dropout masks
-            state = self.gen.get_state()
+        "samples" (each sampler's base draws) in place of the generator's.
+        Traced as the root span ``train.step`` holding ``train.augment``,
+        ``train.backbone``, ``train.sampler``, ``train.eval_dot``,
+        ``train.lyapunov_loss``, ``train.backward`` and
+        ``train.optimizer`` (``utils/tracing.py``)."""
+        with span("train.step"):
+            cfg, model = self.cfg, self.model
+            draws = draws or {}
+            if cfg.augment and self.ds.name.startswith("CIFAR"):
+                # crop and flip are CIFAR-only in the reference's transforms
+                aug = draws.get("augment")
+                if aug is None and self.shard is not None:
+                    aug = shard_rows(
+                        lambda m: augment_draws(m, self.gen, self.device),
+                        len(x), self.shard)
+                with span("train.augment"):
+                    x = augment_batch(x, self.gen, aug)
+            if cfg.lips_train and self.lfx_state is not None:
+                Lfx, self.lfx_state = compute_lfx(
+                    model.backbone, self.lfx_state, self.ds.image_shape)
+                kappa = lips_kappa(step, model.dynamics.kappa,
+                                   model.dynamics.kappa_length, cfg.eps, Lfx,
+                                   cfg.lips_warmup)
+            else:
+                Lfx = torch.ones((), device=self.device)
+                kappa = anneal_kappa(step, model.dynamics.kappa,
+                                     model.dynamics.kappa_length)
+            if cfg.adv_train:
+                # every evaluation of the objective in this step draws the
+                # same samples and dropout masks
+                state = self.gen.get_state()
 
-            def objective(xa):
+                def objective(xa):
+                    self.gen.set_state(state)
+                    return self._compute_loss(xa, y, mixer, kappa,
+                                              scale_nominal, draws)[0][None]
+
+                with frozen(model):
+                    x = pgd_attack(objective, x, eps=cfg.eps, norm=cfg.norm,
+                                   steps=7, step_size=2.5 * cfg.eps / 7,
+                                   generator=self.gen_adv, shard=self.shard)
                 self.gen.set_state(state)
-                return self._compute_loss(xa, y, mixer, kappa, scale_nominal,
-                                          draws)[0][None]
-
-            with frozen(model):
-                x = pgd_attack(objective, x, eps=cfg.eps, norm=cfg.norm,
-                               steps=7, step_size=2.5 * cfg.eps / 7,
-                               generator=self.gen_adv, shard=self.shard)
-            self.gen.set_state(state)
-        loss, metrics = self._full_loss(x, y, mixer, kappa, scale_nominal,
-                                        ode_portion, draws)
-        model.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.shard is not None:
-            self._all_reduce_gradients()
-        with record_function("train.optimizer"):
-            self._update()
-        metrics["Lips"] = Lfx
-        loss = loss.detach()
-        if self.shard is not None:
-            loss, metrics = self._all_reduce_metrics(loss, metrics)
-        return loss, metrics
+            loss, metrics = self._full_loss(x, y, mixer, kappa, scale_nominal,
+                                            ode_portion, draws)
+            model.zero_grad(set_to_none=True)
+            with span("train.backward"):
+                loss.backward()
+                if self.shard is not None:
+                    self._all_reduce_gradients()
+            with span("train.optimizer"):
+                self._update()
+            metrics["Lips"] = Lfx
+            loss = loss.detach()
+            if self.shard is not None:
+                loss, metrics = self._all_reduce_metrics(loss, metrics)
+            return loss, metrics
 
     def _all_reduce_gradients(self):
         """Every process's gradients replaced by their mean, one

@@ -8,7 +8,8 @@
   * ``trace(log_dir)``: a ``torch.profiler`` trace of the body, CPU and
     (on a CUDA machine) device activity, written as a Chrome trace
     (``<host>_<pid>.<time>.pt.trace.json``) that TensorBoard's profiler
-    plugin reads;
+    plugin reads, and the body's span records (``utils/tracing.py``) as
+    ``spans.jsonl`` beside it, one JSON object a line;
   * ``step_timer(name)``: a section timer that synchronises the CUDA
     device at both ends, so its time is the work's and not the launches'.
 
@@ -19,11 +20,14 @@ module's ``env_flag`` stays behind with the ``FIODE_*`` gates it parsed.
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 from pathlib import Path
 from typing import Iterator
 
 import torch
+
+from . import tracing
 
 __all__ = ["set_debug", "trace", "step_timer", "NonFiniteError"]
 
@@ -71,19 +75,24 @@ def set_debug(nans: bool = False, infs: bool = False, checks: bool = False):
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
-    """Profile the body into a ``*.pt.trace.json`` under ``log_dir``;
-    yields the profiler (``key_averages()`` after the body)."""
+    """Profile the body into a ``*.pt.trace.json`` under ``log_dir`` and
+    its span records into ``log_dir/spans.jsonl``; yields the profiler
+    (``key_averages()`` after the body)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     prof = torch.profiler.profile(activities=activities, record_shapes=True)
+    first = tracing.next_id()
     prof.start()
     try:
         yield prof
     finally:
         prof.stop()
         torch.profiler.tensorboard_trace_handler(str(log_dir))(prof)
+        with open(Path(log_dir) / "spans.jsonl", "w") as f:
+            for rec in tracing.records(since=first):
+                f.write(json.dumps(rec) + "\n")
 
 
 @contextlib.contextmanager

@@ -49,6 +49,7 @@ import torch
 
 from ..models.dynamics import densify_dynamics_params
 from ..ops.fused_rhs import fused_rhs, pack_rhs_params
+from ..utils.tracing import span
 from .crown import crown_mlp_bounds, optimize_crown_alphas
 from .grid import enumerate_decision_boundary
 from .ibp_qp import ibp_cbf_qp, ibp_sigmoid, worst_case_vdot
@@ -388,42 +389,47 @@ class Certifier:
         """One CROWN block: x_biases (I, m1), labels (I,), perms (I, n),
         etas (K, C, n), valids (K, C), worst (I,) the running per-image
         worst Vdot + kappa.  Returns the updated worst."""
-        eps, Ws, bs = self.eps, self.Ws, self.bs
-        a1, a2, s1 = self.alpha_1, self.alpha_2, self.sigma_1
-        I, (K, C, n) = perms.shape[0], etas.shape
-        x_rows = x_biases[:, None, :].expand(I, C, -1).reshape(I * C, -1)
-        label_rows = labels[:, None].expand(I, C).reshape(I * C)
-        for k in range(K):
-            eta_l = self.swap_columns(etas[k], perms).reshape(I * C, n)
+        with span("certify.crown_block"):
+            eps, Ws, bs = self.eps, self.Ws, self.bs
+            a1, a2, s1 = self.alpha_1, self.alpha_2, self.sigma_1
+            I, (K, C, n) = perms.shape[0], etas.shape
+            x_rows = x_biases[:, None, :].expand(I, C, -1).reshape(I * C, -1)
+            label_rows = labels[:, None].expand(I, C).reshape(I * C)
+            for k in range(K):
+                eta_l = self.swap_columns(etas[k], perms).reshape(I * C, n)
 
-            def post(lb, ub):
-                # the rest of the certificate chain after the MLP bounds
-                if self.scale_nominal:
-                    lb, ub = ibp_sigmoid(lb, ub, eta_l - eps, eta_l + eps,
-                                         a1, s1, a2)
-                f_lb, f_ub = ibp_cbf_qp(eta_l, eps, lb, ub, a1, s1, a2,
-                                        with_upper=self.with_upper)
-                return worst_case_vdot(eta_l, eps, f_lb, f_ub, label_rows)
+                def post(lb, ub):
+                    # the rest of the certificate chain after the MLP bounds
+                    if self.scale_nominal:
+                        lb, ub = ibp_sigmoid(lb, ub, eta_l - eps, eta_l + eps,
+                                             a1, s1, a2)
+                    f_lb, f_ub = ibp_cbf_qp(eta_l, eps, lb, ub, a1, s1, a2,
+                                            with_upper=self.with_upper)
+                    return worst_case_vdot(eta_l, eps, f_lb, f_ub, label_rows)
 
-            alphas = None
-            if self.alpha_iters:
-                if self.alpha_objective == "width":
-                    # the gradient comes from the smooth width surrogate,
-                    # but the per-cell best iterate is selected by the
-                    # certified quantity, so this cannot lose a certificate
-                    # that plain CROWN (iterate 0) had
-                    loss_fn = lambda lb, ub: (ub - lb).sum(-1)  # noqa: E731
-                    select_fn = post
-                else:
-                    loss_fn, select_fn = post, None
-                alphas = optimize_crown_alphas(
-                    Ws, bs, eta_l, eps, x_rows, loss_fn=loss_fn,
-                    iters=self.alpha_iters, select_fn=select_fn)
-            lb, ub = crown_mlp_bounds(Ws, bs, eta_l, eps, x_rows, alphas)
-            vdot = post(lb, ub).view(I, C)
-            vdot = torch.where(valids[k], vdot, float("-inf"))
-            worst = torch.maximum(worst, vdot.amax(1) + self.kappa)
-        return worst
+                with span("certify.crown"):
+                    alphas = None
+                    if self.alpha_iters:
+                        if self.alpha_objective == "width":
+                            # the gradient comes from the smooth width
+                            # surrogate, but the per-cell best iterate is
+                            # selected by the certified quantity, so this
+                            # cannot lose a certificate that plain CROWN
+                            # (iterate 0) had
+                            loss_fn = lambda lb, ub: (ub - lb).sum(-1)  # noqa: E731
+                            select_fn = post
+                        else:
+                            loss_fn, select_fn = post, None
+                        alphas = optimize_crown_alphas(
+                            Ws, bs, eta_l, eps, x_rows, loss_fn=loss_fn,
+                            iters=self.alpha_iters, select_fn=select_fn)
+                    lb, ub = crown_mlp_bounds(Ws, bs, eta_l, eps, x_rows,
+                                              alphas)
+                with span("certify.qp"):
+                    vdot = post(lb, ub).view(I, C)
+                vdot = torch.where(valids[k], vdot, float("-inf"))
+                worst = torch.maximum(worst, vdot.amax(1) + self.kappa)
+            return worst
 
     def _exact_vdot(self, p, xc_rows, perms, onehot, eta):
         """Exact Vdot at the lattice points of one chunk for every image:
@@ -479,22 +485,28 @@ class Certifier:
     def lips_block(self, p, xc_rows, labels, perms, etas, valids, worst):
         """One Lipschitz block; ``worst`` is the pair (with the grid-gap
         slack, without it) of (I,) running per-image worst values."""
-        n, eps = self.n, self.eps
-        a1, s1 = self.alpha_1, self.sigma_1
-        dist = math.sqrt(n) / self.T  # grid gap
-        onehot = (labels[:, None] == torch.arange(n, device=labels.device))[:, None, :]
-        neg_inf = float("-inf")
-        wf, wl = worst
-        for k in range(etas.shape[0]):
-            vdot, eta_l = self._exact_vdot(p, xc_rows, perms, onehot, etas[k])
-            eta_ub = eta_l.amax(-1) + eps
-            Lf_eta = math.sqrt(n) * (s1 * a1 * torch.exp(s1 * eta_ub)) + 1.0
-            slack = math.sqrt(2.0) * Lf_eta * dist
-            v_full = torch.where(valids[k], vdot + slack + self.kappa_lips, neg_inf)
-            v_larger_T = torch.where(valids[k], vdot + self.kappa_lips, neg_inf)
-            wf = torch.maximum(wf, v_full.amax(1))
-            wl = torch.maximum(wl, v_larger_T.amax(1))
-        return wf, wl
+        with span("certify.lips_block"):
+            n, eps = self.n, self.eps
+            a1, s1 = self.alpha_1, self.sigma_1
+            dist = math.sqrt(n) / self.T  # grid gap
+            onehot = (labels[:, None]
+                      == torch.arange(n, device=labels.device))[:, None, :]
+            neg_inf = float("-inf")
+            wf, wl = worst
+            for k in range(etas.shape[0]):
+                vdot, eta_l = self._exact_vdot(p, xc_rows, perms, onehot,
+                                               etas[k])
+                eta_ub = eta_l.amax(-1) + eps
+                Lf_eta = (math.sqrt(n) * (s1 * a1 * torch.exp(s1 * eta_ub))
+                          + 1.0)
+                slack = math.sqrt(2.0) * Lf_eta * dist
+                v_full = torch.where(valids[k],
+                                     vdot + slack + self.kappa_lips, neg_inf)
+                v_larger_T = torch.where(valids[k], vdot + self.kappa_lips,
+                                         neg_inf)
+                wf = torch.maximum(wf, v_full.amax(1))
+                wl = torch.maximum(wl, v_larger_T.amax(1))
+            return wf, wl
 
     def witness_block(self, p, xc_rows, labels, perms, etas, valids, carry,
                       base_idx: int, stride: Optional[int] = None):
@@ -698,7 +710,8 @@ class Certifier:
                 cells_checked += n_valid * I
                 n_blocks += 1
                 # one host read per block
-                w_full, w_exit = (w.cpu().numpy() for w in worsts(worst))
+                with span("certify.host_read"):
+                    w_full, w_exit = (w.cpu().numpy() for w in worsts(worst))
                 if progress_every and n_blocks % progress_every == 0:
                     el = time.time() - t0
                     print(f"[certify:{method}] block {n_blocks} "

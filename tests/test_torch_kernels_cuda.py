@@ -26,6 +26,14 @@ from fiode_tpu_torch.ops.fused_rhs import (
     staged_warps,
 )
 from fiode_tpu_torch.ops.simplex_qp import cone_project_mu
+from fiode_tpu_torch.utils.tracing import counters
+
+
+def _k1_k2():
+    """K1's and K2's launches so far."""
+    c = counters()
+    return c.get("k1.launches", 0), c.get("k2.launches", 0)
+
 
 A1, S1, A2 = 100.0, 0.02, 20.0
 K1_TOL = 2e-4
@@ -72,9 +80,9 @@ def _conv_inputs(ci, co, k, n, B, seed, device):
                                      (300, 64, 128), (300, 100, 128)])
 def test_fused_rhs_kernel_matches_plain(cuda, B, n, mlp, scale_nominal):
     h, xc, p = _rhs_inputs(B, n, mlp, B + n, cuda)
-    before = fused_rhs.launches
+    before = counters().get("k1.launches", 0)
     got = fused_rhs(h, xc, p, A1, S1, A2, scale_nominal, 30)
-    assert fused_rhs.launches == before + 1
+    assert counters().get("k1.launches", 0) == before + 1
     want = rhs_reference(h, xc, p, A1, S1, A2, scale_nominal, 30)
     torch.testing.assert_close(got, want, atol=K1_TOL, rtol=0)
     # no atomics: repeated launches are bit-identical
@@ -115,10 +123,10 @@ def _assert_k2_matches_plain(got, want):
 def _assert_k2_matches_plain_and_repeats(h, xc, g, p, scale_nominal):
     want = rhs_vjp_reference(h, xc, g, p, A1, S1, A2, scale_nominal, 30)
     for weight_grads in (True, False):
-        before = fused_rhs_vjp.launches
+        before = counters().get("k2.launches", 0)
         got = fused_rhs_vjp(h, xc, g, p, A1, S1, A2, scale_nominal, 30,
                             weight_grads)
-        assert fused_rhs_vjp.launches == before + 1
+        assert counters().get("k2.launches", 0) == before + 1
         assert (got[2] is None) != weight_grads
         _assert_k2_matches_plain(got, want)
         # no atomics: repeated launches are bit-identical
@@ -156,12 +164,12 @@ def test_fused_rhs_refuses_weights_beyond_shared_memory(cuda):
     # the JAX kernel's domain, is refused: see the test below)
     h, xc, p = _rhs_inputs(65, 32, 224, 0, cuda)
     g = torch.randn(65, 32, device=cuda)
-    before = (fused_rhs.launches, fused_rhs_vjp.launches)
+    before = _k1_k2()
     with pytest.raises(ValueError, match="bytes of shared memory"):
         fused_rhs(h, xc, p, A1, S1, A2, False, 30)
     with pytest.raises(ValueError, match="bytes of shared memory"):
         fused_rhs_vjp(h, xc, g, p, A1, S1, A2, False, 30, False)
-    assert (fused_rhs.launches, fused_rhs_vjp.launches) == before
+    assert _k1_k2() == before
 
 
 @pytest.mark.parametrize("scale_nominal", [False, True])
@@ -184,9 +192,9 @@ def test_fused_rhs_backward_launches_k2(cuda, scale_nominal):
     leaves = [t.clone().requires_grad_() for t in (h, xc, *p)]
     out = fused_rhs(leaves[0], leaves[1], RhsParams(*leaves[2:]), A1, S1, A2,
                     scale_nominal, 30)
-    before = fused_rhs_vjp.launches
+    before = counters().get("k2.launches", 0)
     grads = torch.autograd.grad(out, leaves, g)
-    assert fused_rhs_vjp.launches == before + 1
+    assert counters().get("k2.launches", 0) == before + 1
     rh, rxc, rp = rhs_vjp_reference(h, xc, g, p, A1, S1, A2, scale_nominal,
                                     30)
     _assert_k2_matches_plain((grads[0], grads[1], grads[2:]), (rh, rxc, rp))
@@ -212,9 +220,9 @@ def test_fused_rhs_kernel_rejects_bad_layout(cuda):
 ])
 def test_fused_freq_apply_kernel_matches_plain(cuda, ci, co, k, n, B):
     x, Qr, Qi = _conv_inputs(ci, co, k, n, B, ci * co, cuda)
-    before = fused_freq_apply.launches
+    before = counters().get("k3.launches", 0)
     got = fused_freq_apply(x, Qr, Qi)
-    assert fused_freq_apply.launches == before + 1
+    assert counters().get("k3.launches", 0) == before + 1
     want = apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft")
     torch.testing.assert_close(got, want, atol=K3_TOL, rtol=0)
     again = fused_freq_apply(x, Qr, Qi)
@@ -238,9 +246,9 @@ def test_fused_freq_apply_kernel_takes_n_beyond_32(cuda, n, adjoint):
         want = apply_freq_matrices(x, Q.conj().transpose(1, 2).resolve_conj(),
                                    impl="dft")
     else:
-        before = fused_freq_apply.launches
+        before = counters().get("k3.launches", 0)
         got = fused_freq_apply(x, Qr, Qi)
-        assert fused_freq_apply.launches == before + 1
+        assert counters().get("k3.launches", 0) == before + 1
         want = apply_freq_matrices(x, Q, impl="dft")
     torch.testing.assert_close(got, want, atol=K3_TOL, rtol=0)
 
@@ -256,9 +264,9 @@ def test_fused_freq_apply_backward_is_k3_on_q_herm(cuda, ci, co, k, n):
     g = g.to(cuda)
     x.requires_grad_()
     y = fused_freq_apply(x, Qr, Qi)
-    before = fused_freq_apply.launches
+    before = counters().get("k3.launches", 0)
     (dx,) = torch.autograd.grad(y, x, g)
-    assert fused_freq_apply.launches == before + 1
+    assert counters().get("k3.launches", 0) == before + 1
     xp = x.detach().requires_grad_()
     (want,) = torch.autograd.grad(
         apply_freq_matrices(xp, torch.complex(Qr, Qi), impl="dft"), xp, g)
@@ -306,9 +314,9 @@ def test_fused_rhs_at_a_certification_blocks_rows(cuda):
     assert len(grid) == chunk
     h = grid.repeat(images, 1)
     xc_rows = xc[:, None, :].expand(images, chunk, mlp).reshape(-1, mlp).contiguous()
-    before = fused_rhs.launches
+    before = counters().get("k1.launches", 0)
     got = fused_rhs(h, xc_rows, p, A1, S1, A2, False, 30)
-    assert fused_rhs.launches == before + 1
+    assert counters().get("k1.launches", 0) == before + 1
     want = rhs_reference(h, xc_rows, p, A1, S1, A2, False, 30)
     torch.testing.assert_close(got, want, atol=K1_TOL, rtol=0)
 
@@ -328,10 +336,10 @@ def test_certifier_on_cuda_equals_certifier_on_cpu(cuda, method):
     kw = dict(T=8, eps_input=0.1, chunk=64)
     want = Certifier(cpu_model, **kw).certify(x, y, method=method,
                                               early_exit=False)
-    before = fused_rhs.launches
+    before = counters().get("k1.launches", 0)
     got = Certifier(gpu_model, **kw).certify(x.to(cuda), y.to(cuda),
                                              method=method, early_exit=False)
-    launched = fused_rhs.launches - before
+    launched = counters().get("k1.launches", 0) - before
     assert got.clean.all() and want.clean.all()
     np.testing.assert_allclose(got.worst, want.worst, atol=CERT_TOL)
     if method == "lipschitz":
@@ -358,17 +366,17 @@ def test_wrappers_reject_other_devices():
 
 def test_cpu_wrappers_take_the_plain_versions():
     h, xc, p = _rhs_inputs(5, 10, 32, 1, "cpu")
-    before = fused_rhs.launches
+    before = counters().get("k1.launches", 0)
     np.testing.assert_array_equal(
         fused_rhs(h, xc, p, A1, S1, A2, True).numpy(),
         rhs_reference(h, xc, p, A1, S1, A2, True).numpy())
-    assert fused_rhs.launches == before
+    assert counters().get("k1.launches", 0) == before
     x, Qr, Qi = _conv_inputs(3, 5, 3, 8, 2, 0, "cpu")
-    before = fused_freq_apply.launches
+    before = counters().get("k3.launches", 0)
     np.testing.assert_array_equal(
         fused_freq_apply(x, Qr, Qi).numpy(),
         apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft").numpy())
-    assert fused_freq_apply.launches == before
+    assert counters().get("k3.launches", 0) == before
 
 
 def _train_state(model, opt):
@@ -394,14 +402,14 @@ def test_k2_weight_gradients_under_adam_are_bit_stable(cuda):
     for _ in range(2):
         model.load_state_dict(state[0])
         opt.load_state_dict(state[1])
-        before = fused_rhs_vjp.launches
+        before = counters().get("k2.launches", 0)
         for _ in range(2):
             p = model.solve(x).ys[-1]
             loss = -torch.log(torch.take_along_dim(p, y[:, None], 1)).mean()
             opt.zero_grad()
             loss.backward()
             opt.step()
-        assert fused_rhs_vjp.launches - before > 0
+        assert counters().get("k2.launches", 0) - before > 0
         assert model.dynamics.mlp_to_mlp.weight.grad.abs().max() > 0
         runs.append([t.detach().clone() for t in model.parameters()])
     for a, b in zip(*runs):
@@ -444,12 +452,12 @@ def test_lyapunov_step_through_kernels_matches_plain(cuda):
         tr.model.load_state_dict(state[0])
         tr.opt.load_state_dict(state[1])
         tr.gen.set_state(state[2])
-        before = fused_freq_apply.launches
+        before = counters().get("k3.launches", 0)
         ctx = (mock.patch.object(layers, "fused_freq_apply", plain_apply)
                if plain else contextlib.nullcontext())
         with ctx:
             tr._train_step(x, y, 0, mixer, 0.0, True)
-        assert fused_freq_apply.launches - before == (0 if plain else 7)
+        assert counters().get("k3.launches", 0) - before == (0 if plain else 7)
         out.append(({n: p.grad.clone() for n, p in tr.model.named_parameters()},
                     {n: p.detach().clone() for n, p in tr.model.named_parameters()}))
     (gk, pk), (gp, pp) = out
@@ -494,14 +502,14 @@ def test_adjoint_through_kernels_matches_the_plain_adjoint(cuda, weights):
         model.zero_grad()
         xg = x.clone().requires_grad_()
         stats = {}
-        before = (fused_rhs.launches, fused_rhs_vjp.launches)
+        before = _k1_k2()
         with ctx:
             sol = model.solve(xg, use_adjoint=True, adjoint_stats=stats)
             loss = -torch.log(torch.take_along_dim(sol.ys[-1], y[:, None], 1))
             loss.mean().backward()
         torch.cuda.synchronize()
-        k1 = fused_rhs.launches - before[0]
-        k2 = fused_rhs_vjp.launches - before[1]
+        k1 = counters().get("k1.launches", 0) - before[0]
+        k2 = counters().get("k2.launches", 0) - before[1]
         nb = stats["backward_nfe"]
         if plain:
             assert (k1, k2) == (0, 0)

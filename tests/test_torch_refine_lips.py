@@ -28,6 +28,7 @@ from fiode_tpu_torch import params_from_numpy
 from fiode_tpu_torch.models.backbones import TinyMLPBackbone
 from fiode_tpu_torch.models.dynamics import SimplexDynamics
 from fiode_tpu_torch.models.ivp import NeuralODEClassifier
+from fiode_tpu_torch.utils.tracing import counters
 from fiode_tpu_torch.verify import certify as tcertify
 from fiode_tpu_torch.verify import refine as trefine
 from fiode_tpu_torch.verify import refine_lips as trefine_lips
@@ -113,11 +114,11 @@ def test_refine_lips_groupsort_dynamics_match_jax():
     # the centre field of GroupSort dynamics is their eval_dot in both
     # packages, not K1's ReLU field
     s = _pair("GroupSort")
-    before = tcertify.fused_rhs.launches
+    before = counters().get("k1.launches", 0)
     got_cert, got = refine_lips_uncertified(
         s.tcert, s.x, s.y, s.res.certified, exact_ok=s.res.larger_T_certified,
         clean=s.res.clean, **BUDGETS)
-    assert tcertify.fused_rhs.launches == before
+    assert counters().get("k1.launches", 0) == before
     want_cert, want = _jax_refine(s)
     assert [_fields(a) for a in got] == [_fields(b) for b in want]
     np.testing.assert_array_equal(got_cert, want_cert)
