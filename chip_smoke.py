@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from fiode_tpu_torch/csrc (K1 and K2
-in fused_rhs.cu, once per state width; K3 in fused_cayley_conv.cu), prints
+in fused_rhs.cu, once per state width; K3 in fused_cayley_conv.cu; K4 in
+fused_crown.cu at the certify configuration's widths), prints
 ptxas's registers and spills, holds each kernel against its plain PyTorch
 version at the shapes its paths give it, and drives two paths through the
 kernels and through the plain path, checking that the kernels carried each
@@ -36,8 +37,11 @@ and timing both:
     (41,320,837 cells): the grid enumeration (built with g++) and 512/512
     clean (11); the CROWN sweep on test images 4-11, held to the certified
     set of run_data/certified_full/certify_stream_full_rep2.jsonl.json,
-    with one block's device time by stage and its peak memory, and the
-    synthetic sweep of fiode_tpu_torch/bench_certify.py (12); the Lipschitz / larger-T
+    with one block's device time by stage and its peak memory, K4 (CROWN's
+    bounds, one launch a chunk: k4.launches over the sweep) against the
+    plain path at one chunk's rows, its time, its bound and the plain
+    path's time, and the synthetic sweep of
+    fiode_tpu_torch/bench_certify.py (12); the Lipschitz / larger-T
     sweep and exact_witness on test images 0-15 through K1, held to
     lips_stream_full.jsonl.json and exact_witnesses.json, with blocks
     through K1 against the same blocks through rhs_reference (13);
@@ -196,6 +200,10 @@ WIDE_N = 100  # phase 3 also holds K1 at a wide state (the JAX kernel takes n <=
 K1_BATCH, K3_BATCH, E2E_BATCH, TIME_BATCH = 4096, 64, 4096, 32768
 K1_TOL, K3_TOL, E2E_TOL = 2e-4, 1e-4, 1e-3
 MAX_SPILL_BYTES = 16  # spill stores a main-path kernel of fused_rhs.cu may have
+# K4 against its plain path at a chunk of the trained checkpoint's sweep:
+# the gap of a row's bounds over their largest magnitude, and the rows that
+# may exceed it (a neuron within round-off of u = -l takes either slope)
+K4_TOL, K4_TIED_ROWS = 1e-5, 8
 # (ci, co, k, n) of the flagship's four CayleyConv applies (after
 # space_to_depth for the strided ones)
 CONV_SHAPES = ((3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16),
@@ -773,8 +781,13 @@ def grid_phase(dev):
 def crown_phase(model, grid, x, y, dev) -> dict:
     """[12 CROWN] the sweep on CROWN_IMAGES against the artifact's certified
     set; one block by stage; bench_certify.py's synthetic sweep."""
-    from fiode_tpu_torch.verify.certify import Certifier, float32_matmuls
-    from fiode_tpu_torch.verify.crown import crown_mlp_bounds
+    from fiode_tpu_torch._bench_common import FP32_FLOPS, TF32_FLOPS
+    from fiode_tpu_torch.bench_certify import flops_per_cell
+    from fiode_tpu_torch.utils.tracing import counters
+    from fiode_tpu_torch.verify.certify import (SUPERCHUNK, Certifier,
+                                                float32_matmuls)
+    from fiode_tpu_torch.verify.crown import (crown_bounds_reference,
+                                              crown_mlp_bounds)
     from fiode_tpu_torch.verify.ibp_qp import ibp_cbf_qp, worst_case_vdot
     cert = Certifier(model, T=CERT_T, eps_input=CERT_EPS, chunk=CERT_CHUNK,
                      grid=grid)
@@ -797,9 +810,11 @@ def crown_phase(model, grid, x, y, dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    k4_before = counters().get("k4.launches", 0)
     with mock.patch.object(cert, "crown_block", spy):
         res = cert.certify(xs, ys, method="crown")
     launches = counts()
+    k4 = counters().get("k4.launches", 0) - k4_before
     restored = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -825,6 +840,13 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         raise RuntimeError("the CROWN sweep did not cover the grid")
     if launches["fused_rhs"] == 0 or launches["fused_freq_apply"] != 2 * len(CONV_SHAPES):
         raise RuntimeError(f"the clean check's launches: {launches}")
+    # K4: one launch a chunk, every chunk of the blocks (the last padded)
+    chunks = -(-CERT_CELLS // CERT_CHUNK)
+    swept = SUPERCHUNK * len(flags_inside)
+    log(f"[12 crown] k4.launches {k4} over {len(flags_inside)} blocks "
+        f"({chunks} chunks of the grid, {swept} with the last block's padding)")
+    if k4 != swept or swept != -(-chunks // SUPERCHUNK) * SUPERCHUNK:
+        raise RuntimeError(f"K4 launched {k4} times for {swept} chunks")
 
     # one chunk by stage (device time between events), then under the profiler
     with torch.no_grad(), float32_matmuls():
@@ -840,17 +862,45 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         def chunk():
             return cert.crown_block(x_biases, ys, perms, eta[None], valid, worst0)
 
-        t = {"crown": cuda_ms(lambda: crown_mlp_bounds(
+        k4_before = counters().get("k4.launches", 0)
+        t_k4 = cuda_ms(lambda: crown_mlp_bounds(
+            cert.Ws, cert.bs, eta_l, cert.eps, x_rows), 3, 1)
+        k4_timed = counters().get("k4.launches", 0) - k4_before
+        t = {"crown": t_k4,
+             "crown_plain": cuda_ms(lambda: crown_bounds_reference(
                  cert.Ws, cert.bs, eta_l, cert.eps, x_rows), 3, 1),
              "qp": cuda_ms(lambda: ibp_cbf_qp(
                  eta_l, cert.eps, lb, ub, a1, s1, a2), 3, 1),
              "vdot": cuda_ms(lambda: worst_case_vdot(
                  eta_l, cert.eps, f_lb, f_ub, label_rows), 3, 1),
              "chunk": cuda_ms(chunk, 3, 1)}
+        ref = crown_bounds_reference(cert.Ws, cert.bs, eta_l, cert.eps, x_rows)
+        scale = max(float(r.abs().max()) for r in ref)
+        row_gap = torch.maximum(*((a - r).abs().amax(1)
+                                  for a, r in zip((lb, ub), ref))) / scale
+        k4_err, k4_off = float(row_gap.max()), int((row_gap > K4_TOL).sum())
         torch.cuda.reset_peak_memory_stats()
         wall, busy, top, top_ops = device_breakdown(chunk, top=6, top_ops=12)
         peak_chunk = torch.cuda.max_memory_allocated() / 2**30
     rows = len(idx) * CERT_CHUNK
+    # K4's bound: CROWN's products counted dense, at the 3xTF32 rate (a
+    # third of the TF32 peak) and on the fp32 cores; K4 skips the neurons
+    # that add nothing, so it may beat the dense fp32 figure
+    dense = rows * flops_per_cell(N_CLASSES, MLP)["products"]
+    b3, b32 = 1e3 * dense / (TF32_FLOPS / 3), 1e3 * dense / FP32_FLOPS
+    log(f"[12 K4] CROWN's bounds of one chunk ({rows} rows): K4 "
+        f"{t['crown']:.3f} ms, {k4_timed} launches for its 4 calls (3 timed, "
+        f"1 warm-up) | bound {b3:.3f} ms at the 3xTF32 rate "
+        f"({100 * b3 / t['crown']:.1f}%), {b32:.3f} ms on the fp32 cores "
+        f"({100 * b32 / t['crown']:.1f}%) for {dense / 1e9:.1f} GFLOP counted "
+        f"dense | plain path {t['crown_plain']:.2f} ms "
+        f"({t['crown_plain'] / t['crown']:.1f}x K4) | max gap to the plain "
+        f"path {k4_err:.2e} of the bounds' largest, {k4_off} rows over "
+        f"{K4_TOL:g} (a slope taken the other way at a tie u = -l)")
+    if k4_timed != 4:
+        raise RuntimeError(f"K4 launched {k4_timed} times for 4 calls")
+    if k4_off > K4_TIED_ROWS:
+        raise RuntimeError(f"K4 parts from the plain path on {k4_off} rows")
     products = sum(ms for name, _, _, ms in top_ops
                    if name in ("aten::mm", "aten::bmm", "aten::addmm"))
     log(f"[12 device_breakdown] one chunk, {len(idx)} images x {CERT_CHUNK} cells = "
@@ -876,7 +926,9 @@ def crown_phase(model, grid, x, y, dev) -> dict:
     log(f"[12 bench_certify] synthetic sweep, {I} images x {C} cells x "
         f"{bench_certify.N_INNER}, random weights, float32: {best:.1f} ms, "
         f"{bench_certify.N_INNER * C * I / best * 1e3:,.0f} image-cells/s")
-    return {"launches": launches, "rate": rate}
+    return {"launches": launches, "rate": rate,
+            "k4": {"launches": k4, "ms": t["crown"], "plain_ms": t["crown_plain"],
+                   "bound_ms": b3, "bound_fp32_ms": b32, "max_rel_err": k4_err}}
 
 
 def lipschitz_phase(model, grid, x, y, dev) -> dict:
@@ -1025,6 +1077,7 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
     checkpoint at the committed passes' budgets, against their artifacts;
     one BaB round's device breakdown."""
     import numpy as np
+    from fiode_tpu_torch.utils.tracing import counters
     from fiode_tpu_torch.verify import refine as refine_module
     from fiode_tpu_torch.verify import refine_lips as refine_lips_module
     from fiode_tpu_torch.verify import refine_lips_uncertified, refine_uncertified
@@ -1069,11 +1122,15 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
         rec = json.loads(line)
         if rec["image"] in REFINE_IMAGES:
             artifact[rec["image"]] = rec
+    k4_before = counters().get("k4.launches", 0)
     _, crown_stats, crown_s = run(
         refine_uncertified, REFINE_IMAGES,
         certified=np.zeros(len(REFINE_IMAGES), bool), chunk=CERT_CHUNK,
         **REFINE_BUDGETS)
     launches_a = counts()
+    # K4 bounds each image's sweep, a launch a chunk; the BaB steps take the
+    # plain chain (their split dims are a gradient in the half-widths)
+    k4_a = counters().get("k4.launches", 0) - k4_before
     for i, s, bab in crown_stats:
         w, (f_viol, f_rounds, f_boxes) = artifact[i], REFINE_F32[i]
         bab_s = bab["seconds"] if bab else 0.0
@@ -1093,7 +1150,8 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
         if s.rounds != f_rounds:
             raise RuntimeError(f"image {i}: {s.rounds} rounds, float32 {f_rounds}")
     log(f"[14a crown BaB] images {list(REFINE_IMAGES)}: {crown_s:.1f} s with the "
-        f"clean check and feature pass | launches {launches_a}")
+        f"clean check and feature pass | launches {launches_a}, k4.launches {k4_a} "
+        f"({k4_a / len(REFINE_IMAGES):.0f} an image)")
 
     # one BaB round of image 221 (its violated cells) under the profiler
     with torch.no_grad(), float32_matmuls():
@@ -1173,7 +1231,7 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
     seconds = time.perf_counter() - t_phase
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
     log(f"[14 refine] phase 14 in {seconds:.1f} s | launches {launches}")
-    return {"launches": launches, "seconds": seconds}
+    return {"launches": launches, "seconds": seconds, "k4_launches": k4_a}
 
 
 def certify_phases(dev) -> dict:
@@ -2972,6 +3030,7 @@ def main() -> None:
                                             load_library)
     from fiode_tpu_torch.ops.cayley import apply_freq_matrices, cayley_conv_kernel
     from fiode_tpu_torch.ops.fused_cayley_conv import _launch, fused_freq_apply
+    from fiode_tpu_torch.ops import fused_crown as fused_crown_module
     from fiode_tpu_torch.ops import fused_rhs as fused_rhs_module
     from fiode_tpu_torch.ops.fused_rhs import RhsParams, fused_rhs, rhs_reference
 
@@ -2999,16 +3058,22 @@ def main() -> None:
     # (n = 10) and phase 3's wide state (n = 100); one nvcc each, together
     builds = [lambda: load_library("fused_cayley_conv"),
               lambda: fused_rhs_module.build(N_CLASSES, MLP)]
+    certifies = phases in ("all", "certify", "cli", "drivers", "bench")
     if phases in ("all", "certify", "cli", "drivers"):
         builds.append(lambda: load_cpp_library("grid_enum"))
+    if certifies:  # K4 at the certify configuration's widths
+        builds.append(lambda: fused_crown_module.build(N_CLASSES, MLP, MLP,
+                                                       N_CLASSES))
     if phases == "all":
         builds.append(lambda: fused_rhs_module.build(WIDE_N, MLP))
     if phases in ("all", "drivers"):  # the dry run's 3-class, mlp-16 certifier
         builds.append(lambda: fused_rhs_module.build(3, 16))
+        builds.append(lambda: fused_crown_module.build(3, 16, 16, 3))
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
     log(f"[2 build] K1 + K2 ({'three widths' if phases == 'all' else 'two widths' if phases == 'drivers' else 'one width'}) + K3 "
+        f"{'+ K4 ' if certifies else ''}"
         f"{'+ grid_enum (g++) ' if phases in ('all', 'certify', 'cli', 'drivers') else ''}built in {build_s:.1f} s "
         f"into {BUILD_DIR}")
     # ptxas on every kernel; the main path's own (the flagship's K1, and its
@@ -3024,7 +3089,8 @@ def main() -> None:
                 name = ln.split(chr(39))[1]
                 flags = "".join(re.findall(r"Lb([01])E", name))
                 kernel = next((k for k in ("fused_rhs_backward_kernel",
-                                           "fused_rhs_kernel") if k in name),
+                                           "fused_rhs_kernel",
+                                           "fused_crown_kernel") if k in name),
                               name[-40:])
                 log(f"    ptxas {p.stem[3:]} {kernel}<{flags}>: {info}")
                 hot = kernel == "fused_rhs_kernel" or flags.endswith("0")
@@ -3399,6 +3465,15 @@ def main() -> None:
          "ms": kf["kernel"], "plain_ms": kf["plain"], "bound_ms": kf["bound"],
          "bound_by": max(("bytes", "operations"), key=kf.get),
          "library_ms": kf["fft"]},
+        {"name": "fused_crown", "route": "cuda",
+         "source": "fiode_tpu_torch/csrc/fused_crown.cu", "replaces": None,
+         "launches": cert["crown"]["k4"]["launches"],
+         "launches_by_phase": {"12 certify crown": cert["crown"]["k4"]["launches"],
+                               "14a refine crown BaB": cert["refine"]["k4_launches"]},
+         "max_rel_err": cert["crown"]["k4"]["max_rel_err"],
+         "ms": cert["crown"]["k4"]["ms"], "plain_ms": cert["crown"]["k4"]["plain_ms"],
+         "bound_ms": cert["crown"]["k4"]["bound_ms"], "bound_by": "operations",
+         "bound_fp32_ms": cert["crown"]["k4"]["bound_fp32_ms"], "library_ms": None},
     ]
     log(f"[done] phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     log(smi)

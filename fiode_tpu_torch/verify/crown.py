@@ -19,6 +19,10 @@ Algorithm (standard CROWN):
 
 ``ibp_mlp_bounds`` gives pure interval bounds (a soundness cross-check:
 CROWN must be at least as tight, and both must contain sampled values).
+
+``crown_mlp_bounds`` launches kernel K4 (``ops/fused_crown``) where its
+route takes the call (CUDA float32, three layers, m2 >= n, no gradient to
+carry) and runs ``crown_bounds_reference``, K4's plain version, otherwise.
 """
 from __future__ import annotations
 
@@ -26,8 +30,10 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["crown_mlp_bounds", "ibp_mlp_bounds", "relu_relaxation",
-           "optimize_crown_alphas"]
+from ..ops import fused_crown
+
+__all__ = ["crown_mlp_bounds", "crown_bounds_reference", "ibp_mlp_bounds",
+           "relu_relaxation", "optimize_crown_alphas"]
 
 Eps = Union[float, torch.Tensor]
 
@@ -154,7 +160,22 @@ def _rows(x_bias: torch.Tensor, N: int) -> torch.Tensor:
 def crown_mlp_bounds(Ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                      eta0: torch.Tensor, eps: Eps, x_bias: torch.Tensor,
                      alphas: Optional[Sequence[torch.Tensor]] = None):
-    """Elementwise output bounds of the ReLU MLP over the eta Linf box.
+    """Elementwise output bounds of the ReLU MLP over the eta Linf box
+    (arguments and result as ``crown_bounds_reference``): one launch of
+    kernel K4 where ``fused_crown.takes`` the call, the plain chain
+    otherwise."""
+    if fused_crown.takes(Ws, bs, eta0, eps, x_bias, alphas):
+        return fused_crown.fused_crown_bounds(Ws, bs, eta0, eps, x_bias,
+                                              alphas)
+    return crown_bounds_reference(Ws, bs, eta0, eps, x_bias, alphas)
+
+
+def crown_bounds_reference(Ws: Sequence[torch.Tensor],
+                           bs: Sequence[torch.Tensor], eta0: torch.Tensor,
+                           eps: Eps, x_bias: torch.Tensor,
+                           alphas: Optional[Sequence[torch.Tensor]] = None):
+    """Elementwise output bounds of the ReLU MLP over the eta Linf box, in
+    plain PyTorch (kernel K4's plain version).
 
     Args:
       Ws/bs: dense layer stack [(m1, n), (m2, m1), ..., (out, mk)]; for the

@@ -520,3 +520,166 @@ def test_adjoint_through_kernels_matches_the_plain_adjoint(cuda, weights):
     for a, b in zip(*grads):
         assert a is not None and b is not None
         assert (a - b).abs().max() <= 5e-3 * b.abs().max()
+
+
+# -- K4: CROWN's bounds of the ReLU dynamics ----------------------------------
+
+K4_TOL = 1e-5  # max gap of lb and ub over the plain bounds' largest magnitude
+# rows with a neuron whose float64 bounds lie this close (relative to u - l)
+# to a jump of the relaxation are left out of the K4 checks: the lower slope
+# 1[u >= -l] jumps at u = -l, and alpha-CROWN's slope at l = 0 and u = 0;
+# there two correct float32 evaluations (the kernel's and cuBLAS's sum
+# orders) may take different slopes, both sound
+TIE_MARGIN = 1e-5
+
+
+def _crown_inputs(N, n, m1, m2, out, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    Ws = [0.5 * torch.randn(m1, n, generator=g),
+          0.5 * torch.randn(m2, m1, generator=g) / m1 ** 0.5,
+          0.5 * torch.randn(out, m2, generator=g) / m2 ** 0.5]
+    bs = [0.1 * torch.randn(m, generator=g) for m in (m1, m2, out)]
+    eta = torch.rand(N, n, generator=g)
+    eta = eta / eta.sum(-1, keepdim=True)
+    x_bias = torch.randn(N, m1, generator=g)
+    eps_rows = 0.01 + 0.05 * torch.rand(N, n, generator=g)
+    alphas = [1.4 * torch.rand(N, m, generator=g) - 0.2 for m in (m1, m2)]
+    to = lambda t: t.to(device)  # noqa: E731
+    return ([to(W) for W in Ws], [to(b) for b in bs], to(eta), to(x_bias),
+            to(eps_rows), [to(a) for a in alphas])
+
+
+def _near_jumps(Ws, bs, eta, eps, x_bias, alphas):
+    """(N,) rows with a neuron of layer 1 or 2 near a jump of its
+    relaxation, from the plain chain in float64."""
+    from fiode_tpu_torch.verify.crown import _backward_from, relu_relaxation
+    d = lambda t: t.double()  # noqa: E731
+    Ws, bs = [d(W) for W in Ws], [d(b) for b in bs]
+    eta, x_bias = d(eta), d(x_bias)
+    eps = eps if not torch.is_tensor(eps) else d(eps)
+    near = torch.zeros(eta.shape[0], dtype=torch.bool, device=eta.device)
+    relax = []
+    for j in (1, 2):
+        l, u = _backward_from(j, Ws, bs, relax, eta, eps, x_bias)
+        w = TIE_MARGIN * (u - l)
+        jumps = (u + l).abs() < w
+        if alphas is not None:
+            jumps = jumps | (l.abs() < w) | (u.abs() < w)
+        near |= ((l < w) & (u > -w) & jumps).any(-1)
+        r = list(relu_relaxation(l, u))
+        if alphas is not None:
+            r[2] = torch.where((l < 0) & (u > 0),
+                               d(alphas[j - 1]).clamp(0.0, 1.0), r[2])
+        relax.append(tuple(r))
+    return near
+
+
+def _assert_k4_matches_plain(got, want, near):
+    scale = max(float(w.abs().max()) for w in want)
+    keep = ~near
+    for g, w in zip(got, want):
+        gap = float((g - w)[keep].abs().max()) / scale
+        assert gap <= K4_TOL, gap
+    assert int(near.sum()) <= max(4, near.numel() // 200)
+
+
+@pytest.mark.parametrize("with_alphas", [False, True])
+@pytest.mark.parametrize("eps_kind", ["scalar", "per_row"])
+@pytest.mark.parametrize("N", [131072, 1000])
+def test_fused_crown_matches_plain(cuda, N, eps_kind, with_alphas):
+    """K4 against its plain version at a certify chunk's rows (16 images x
+    8,192 cells) and at a ragged count, TF32 off."""
+    from fiode_tpu_torch.verify.crown import (crown_bounds_reference,
+                                              crown_mlp_bounds)
+    Ws, bs, eta, x_bias, eps_rows, alphas = _crown_inputs(
+        N, 10, 128, 128, 10, N + 7, cuda)
+    eps = 1.0 / 40 if eps_kind == "scalar" else eps_rows
+    alphas = alphas if with_alphas else None
+    with torch.no_grad():
+        before = counters().get("k4.launches", 0)
+        got = crown_mlp_bounds(Ws, bs, eta, eps, x_bias, alphas)
+        assert counters().get("k4.launches", 0) == before + 1
+        want = crown_bounds_reference(Ws, bs, eta, eps, x_bias, alphas)
+        again = crown_mlp_bounds(Ws, bs, eta, eps, x_bias, alphas)
+    _assert_k4_matches_plain(got, want,
+                             _near_jumps(Ws, bs, eta, eps, x_bias, alphas))
+    # no atomics: repeated launches are bit-identical
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 16, 3), (3, 20, 12, 3)])
+def test_fused_crown_takes_narrow_and_padded_widths(cuda, shape):
+    from fiode_tpu_torch.verify.crown import (crown_bounds_reference,
+                                              crown_mlp_bounds)
+    Ws, bs, eta, x_bias, eps_rows, alphas = _crown_inputs(1000, *shape, 11,
+                                                          cuda)
+    for eps, al in ((0.05, None), (eps_rows, alphas)):
+        with torch.no_grad():
+            before = counters().get("k4.launches", 0)
+            got = crown_mlp_bounds(Ws, bs, eta, eps, x_bias, al)
+            assert counters().get("k4.launches", 0) == before + 1
+            want = crown_bounds_reference(Ws, bs, eta, eps, x_bias, al)
+        _assert_k4_matches_plain(got, want,
+                                 _near_jumps(Ws, bs, eta, eps, x_bias, al))
+
+
+def test_fused_crown_reads_one_shared_bias_row(cuda):
+    """A (m1,) x_bias is read with row stride 0, as the plain path
+    broadcasts it."""
+    from fiode_tpu_torch.verify.crown import (crown_bounds_reference,
+                                              crown_mlp_bounds)
+    Ws, bs, eta, x_bias, _, _ = _crown_inputs(4096, 10, 128, 128, 10, 3, cuda)
+    with torch.no_grad():
+        got = crown_mlp_bounds(Ws, bs, eta, 1.0 / 40, x_bias[0])
+        want = crown_bounds_reference(Ws, bs, eta, 1.0 / 40, x_bias[0])
+    _assert_k4_matches_plain(got, want, _near_jumps(
+        Ws, bs, eta, 1.0 / 40, x_bias[0].expand_as(x_bias), None))
+
+
+def test_crown_takes_the_plain_chain_off_k4s_route(cuda):
+    """A CPU tensor, a two-layer stack (the Segway controller) and a call
+    that needs gradients never launch K4; the gradient one still carries
+    its graph."""
+    from fiode_tpu_torch.verify.crown import crown_mlp_bounds
+    Ws, bs, eta, x_bias, _, alphas = _crown_inputs(256, 10, 128, 128, 10, 5,
+                                                   cuda)
+    before = counters().get("k4.launches", 0)
+    cpu = lambda ts: [t.cpu() for t in ts]  # noqa: E731
+    with torch.no_grad():
+        crown_mlp_bounds(cpu(Ws), cpu(bs), eta.cpu(), 0.025, x_bias.cpu())
+        crown_mlp_bounds(Ws[:2], bs[:2], eta, 0.025, x_bias)
+    leaves = [a.clone().requires_grad_() for a in alphas]
+    lb, ub = crown_mlp_bounds(Ws, bs, eta, 0.025, x_bias, leaves)
+    (ub - lb).sum().backward()
+    assert all(a.grad is not None for a in leaves)
+    assert counters().get("k4.launches", 0) == before
+
+
+def test_fused_crown_refuses_shapes_beyond_its_domain(cuda):
+    from fiode_tpu_torch.verify.crown import crown_mlp_bounds
+    before = counters().get("k4.launches", 0)
+    for shape in ((12, 128, 128, 12), (3, 256, 256, 3)):
+        Ws, bs, eta, x_bias, _, _ = _crown_inputs(64, *shape, 1, cuda)
+        with torch.no_grad(), pytest.raises(ValueError, match="fused_crown"):
+            crown_mlp_bounds(Ws, bs, eta, 0.025, x_bias)
+    assert counters().get("k4.launches", 0) == before
+
+
+def test_crown_block_launches_k4_once_per_chunk(cuda):
+    """The certifier's block of K chunks launches K4 K times, and the
+    alpha-CROWN block launches it for every score and the final bounds."""
+    from fiode_tpu_torch.verify.certify import Certifier
+    model = _tiny_classifier(7).to(cuda)
+    x = torch.rand(3, 1, 8, 8, generator=torch.Generator().manual_seed(8))
+    x = x.to(cuda)
+    with torch.no_grad():
+        y = model.predict(x).argmax(-1)
+    for alpha_iters, per_chunk in ((0, 1), (2, 4)):
+        cert = Certifier(model, T=8, eps_input=0.1, chunk=64,
+                         alpha_iters=alpha_iters)
+        before = counters().get("k4.launches", 0)
+        res = cert.certify(x, y, method="crown", early_exit=False)
+        chunks = -(-1839 // 64)
+        assert res.clean.all()
+        assert counters().get("k4.launches", 0) - before == per_chunk * (
+            -(-chunks // 16) * 16)
