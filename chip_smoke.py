@@ -5,7 +5,8 @@
 
 Builds the hand-written CUDA kernels from fiode_tpu_torch/csrc (K1 and K2
 in fused_rhs.cu, once per state width; K3 in fused_cayley_conv.cu; K4 in
-fused_crown.cu at the certify configuration's widths), prints
+fused_crown.cu and K5 in fused_qp.cu at the certify configuration's
+widths), prints
 ptxas's registers and spills, holds each kernel against its plain PyTorch
 version at the shapes its paths give it, and drives two paths through the
 kernels and through the plain path, checking that the kernels carried each
@@ -38,9 +39,10 @@ and timing both:
     clean (11); the CROWN sweep on test images 4-11, held to the certified
     set of run_data/certified_full/certify_stream_full_rep2.jsonl.json,
     with one block's device time by stage and its peak memory, K4 (CROWN's
-    bounds, one launch a chunk: k4.launches over the sweep) against the
-    plain path at one chunk's rows, its time, its bound and the plain
-    path's time, and the synthetic sweep of
+    bounds) and K5 (the interval QP), one launch each a chunk (k4.launches,
+    k5.launches over the sweep), each against its plain path at one
+    chunk's rows, with its time, its bound and the plain path's time, and
+    the synthetic sweep of
     fiode_tpu_torch/bench_certify.py (12); the Lipschitz / larger-T
     sweep and exact_witness on test images 0-15 through K1, held to
     lips_stream_full.jsonl.json and exact_witnesses.json, with blocks
@@ -204,6 +206,11 @@ MAX_SPILL_BYTES = 16  # spill stores a main-path kernel of fused_rhs.cu may have
 # the gap of a row's bounds over their largest magnitude, and the rows that
 # may exceed it (a neuron within round-off of u = -l takes either slope)
 K4_TOL, K4_TIED_ROWS = 1e-5, 8
+# K5 against the plain interval QP on that chunk's bounds: the largest gap
+# over the bounds' largest magnitude (the two differ only in the order of
+# each row's sum of n terms, which moves where the bisection stalls by a
+# few float32 spacings)
+K5_TOL = 1e-5
 # (ci, co, k, n) of the flagship's four CayleyConv applies (after
 # space_to_depth for the strided ones)
 CONV_SHAPES = ((3, 32, 3, 32), (128, 32, 2, 16), (32, 64, 3, 16),
@@ -781,14 +788,16 @@ def grid_phase(dev):
 def crown_phase(model, grid, x, y, dev) -> dict:
     """[12 CROWN] the sweep on CROWN_IMAGES against the artifact's certified
     set; one block by stage; bench_certify.py's synthetic sweep."""
-    from fiode_tpu_torch._bench_common import FP32_FLOPS, TF32_FLOPS
+    from fiode_tpu_torch._bench_common import FP32_FLOPS, HBM_BYTES, TF32_FLOPS
     from fiode_tpu_torch.bench_certify import flops_per_cell
     from fiode_tpu_torch.utils.tracing import counters
     from fiode_tpu_torch.verify.certify import (SUPERCHUNK, Certifier,
                                                 float32_matmuls)
     from fiode_tpu_torch.verify.crown import (crown_bounds_reference,
                                               crown_mlp_bounds)
-    from fiode_tpu_torch.verify.ibp_qp import ibp_cbf_qp, worst_case_vdot
+    from fiode_tpu_torch.verify.ibp_qp import (ibp_cbf_qp,
+                                               ibp_cbf_qp_band_reference,
+                                               worst_case_vdot)
     cert = Certifier(model, T=CERT_T, eps_input=CERT_EPS, chunk=CERT_CHUNK,
                      grid=grid)
     want = json.loads((CERT_DIR / "certify_stream_full_rep2.jsonl.json").read_text())
@@ -811,10 +820,12 @@ def crown_phase(model, grid, x, y, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     k4_before = counters().get("k4.launches", 0)
+    k5_before = counters().get("k5.launches", 0)
     with mock.patch.object(cert, "crown_block", spy):
         res = cert.certify(xs, ys, method="crown")
     launches = counts()
     k4 = counters().get("k4.launches", 0) - k4_before
+    k5 = counters().get("k5.launches", 0) - k5_before
     restored = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -843,10 +854,14 @@ def crown_phase(model, grid, x, y, dev) -> dict:
     # K4: one launch a chunk, every chunk of the blocks (the last padded)
     chunks = -(-CERT_CELLS // CERT_CHUNK)
     swept = SUPERCHUNK * len(flags_inside)
-    log(f"[12 crown] k4.launches {k4} over {len(flags_inside)} blocks "
-        f"({chunks} chunks of the grid, {swept} with the last block's padding)")
+    log(f"[12 crown] k4.launches {k4}, k5.launches {k5} over "
+        f"{len(flags_inside)} blocks ({chunks} chunks of the grid, {swept} with "
+        f"the last block's padding): the certified set above is K4's and K5's")
     if k4 != swept or swept != -(-chunks // SUPERCHUNK) * SUPERCHUNK:
         raise RuntimeError(f"K4 launched {k4} times for {swept} chunks")
+    # K5: one launch a chunk too, the interval QP of every chunk
+    if k5 != swept:
+        raise RuntimeError(f"K5 launched {k5} times for {swept} chunks")
 
     # one chunk by stage (device time between events), then under the profiler
     with torch.no_grad(), float32_matmuls():
@@ -866,11 +881,17 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         t_k4 = cuda_ms(lambda: crown_mlp_bounds(
             cert.Ws, cert.bs, eta_l, cert.eps, x_rows), 3, 1)
         k4_timed = counters().get("k4.launches", 0) - k4_before
+        h_lb, h_ub = eta_l - cert.eps, eta_l + cert.eps
+        k5_before = counters().get("k5.launches", 0)
+        t_k5 = cuda_ms(lambda: ibp_cbf_qp(
+            eta_l, cert.eps, lb, ub, a1, s1, a2), 3, 1)
+        k5_timed = counters().get("k5.launches", 0) - k5_before
         t = {"crown": t_k4,
              "crown_plain": cuda_ms(lambda: crown_bounds_reference(
                  cert.Ws, cert.bs, eta_l, cert.eps, x_rows), 3, 1),
-             "qp": cuda_ms(lambda: ibp_cbf_qp(
-                 eta_l, cert.eps, lb, ub, a1, s1, a2), 3, 1),
+             "qp": t_k5,
+             "qp_plain": cuda_ms(lambda: ibp_cbf_qp_band_reference(
+                 h_lb, h_ub, lb, ub, a1, s1, a2), 3, 1),
              "vdot": cuda_ms(lambda: worst_case_vdot(
                  eta_l, cert.eps, f_lb, f_ub, label_rows), 3, 1),
              "chunk": cuda_ms(chunk, 3, 1)}
@@ -879,6 +900,10 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         row_gap = torch.maximum(*((a - r).abs().amax(1)
                                   for a, r in zip((lb, ub), ref))) / scale
         k4_err, k4_off = float(row_gap.max()), int((row_gap > K4_TOL).sum())
+        qp_ref = ibp_cbf_qp_band_reference(h_lb, h_ub, lb, ub, a1, s1, a2)
+        k5_err = max(float((g - r).abs().max()) for g, r in
+                     zip((f_lb, f_ub), qp_ref)) / max(
+                         float(r.abs().max()) for r in qp_ref)
         torch.cuda.reset_peak_memory_stats()
         wall, busy, top, top_ops = device_breakdown(chunk, top=6, top_ops=12)
         peak_chunk = torch.cuda.max_memory_allocated() / 2**30
@@ -901,6 +926,21 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         raise RuntimeError(f"K4 launched {k4_timed} times for 4 calls")
     if k4_off > K4_TIED_ROWS:
         raise RuntimeError(f"K4 parts from the plain path on {k4_off} rows")
+    # K5's bound: 2 n projections of n lanes, 3 operations a lane and
+    # halving (30: ibp_cbf_qp's, as crown_block calls it), at the float32
+    # rate, or 6 n floats a row at the memory rate
+    qp_ops = rows * 2 * N_CLASSES * 3 * N_CLASSES * 30
+    b5 = 1e3 * max(qp_ops / FP32_FLOPS, rows * 24 * N_CLASSES / HBM_BYTES)
+    log(f"[12 K5] the interval QP of one chunk ({rows} rows): K5 "
+        f"{t['qp']:.4f} ms, {k5_timed} launches for its 4 calls | bound "
+        f"{b5:.4f} ms ({100 * b5 / t['qp']:.1f}%) for {qp_ops / 1e9:.2f} G "
+        f"operations | plain chain {t['qp_plain']:.2f} ms "
+        f"({t['qp_plain'] / t['qp']:.0f}x K5) | max gap to the plain chain "
+        f"{k5_err:.2e} of the bounds' largest")
+    if k5_timed != 4:
+        raise RuntimeError(f"K5 launched {k5_timed} times for 4 calls")
+    if k5_err > K5_TOL:
+        raise RuntimeError(f"K5 parts from the plain chain by {k5_err:.2e}")
     products = sum(ms for name, _, _, ms in top_ops
                    if name in ("aten::mm", "aten::bmm", "aten::addmm"))
     log(f"[12 device_breakdown] one chunk, {len(idx)} images x {CERT_CHUNK} cells = "
@@ -928,7 +968,9 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         f"{bench_certify.N_INNER * C * I / best * 1e3:,.0f} image-cells/s")
     return {"launches": launches, "rate": rate,
             "k4": {"launches": k4, "ms": t["crown"], "plain_ms": t["crown_plain"],
-                   "bound_ms": b3, "bound_fp32_ms": b32, "max_rel_err": k4_err}}
+                   "bound_ms": b3, "bound_fp32_ms": b32, "max_rel_err": k4_err},
+            "k5": {"launches": k5, "ms": t["qp"], "plain_ms": t["qp_plain"],
+                   "bound_ms": b5, "max_rel_err": k5_err}}
 
 
 def lipschitz_phase(model, grid, x, y, dev) -> dict:
@@ -1123,14 +1165,17 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
         if rec["image"] in REFINE_IMAGES:
             artifact[rec["image"]] = rec
     k4_before = counters().get("k4.launches", 0)
+    k5_before = counters().get("k5.launches", 0)
     _, crown_stats, crown_s = run(
         refine_uncertified, REFINE_IMAGES,
         certified=np.zeros(len(REFINE_IMAGES), bool), chunk=CERT_CHUNK,
         **REFINE_BUDGETS)
     launches_a = counts()
-    # K4 bounds each image's sweep, a launch a chunk; the BaB steps take the
-    # plain chain (their split dims are a gradient in the half-widths)
+    # K4 and K5 bound each image's sweep, a launch each a call; the BaB steps
+    # take the plain chains (their split dims are a gradient in the
+    # half-widths, through CROWN and the QP)
     k4_a = counters().get("k4.launches", 0) - k4_before
+    k5_a = counters().get("k5.launches", 0) - k5_before
     for i, s, bab in crown_stats:
         w, (f_viol, f_rounds, f_boxes) = artifact[i], REFINE_F32[i]
         bab_s = bab["seconds"] if bab else 0.0
@@ -1151,7 +1196,9 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
             raise RuntimeError(f"image {i}: {s.rounds} rounds, float32 {f_rounds}")
     log(f"[14a crown BaB] images {list(REFINE_IMAGES)}: {crown_s:.1f} s with the "
         f"clean check and feature pass | launches {launches_a}, k4.launches {k4_a} "
-        f"({k4_a / len(REFINE_IMAGES):.0f} an image)")
+        f"({k4_a / len(REFINE_IMAGES):.0f} an image), k5.launches {k5_a}")
+    if k5_a != k4_a:
+        raise RuntimeError(f"K5 launched {k5_a} times for K4's {k4_a} sweep calls")
 
     # one BaB round of image 221 (its violated cells) under the profiler
     with torch.no_grad(), float32_matmuls():
@@ -1231,7 +1278,8 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
     seconds = time.perf_counter() - t_phase
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
     log(f"[14 refine] phase 14 in {seconds:.1f} s | launches {launches}")
-    return {"launches": launches, "seconds": seconds, "k4_launches": k4_a}
+    return {"launches": launches, "seconds": seconds, "k4_launches": k4_a,
+            "k5_launches": k5_a}
 
 
 def certify_phases(dev) -> dict:
@@ -3031,6 +3079,7 @@ def main() -> None:
     from fiode_tpu_torch.ops.cayley import apply_freq_matrices, cayley_conv_kernel
     from fiode_tpu_torch.ops.fused_cayley_conv import _launch, fused_freq_apply
     from fiode_tpu_torch.ops import fused_crown as fused_crown_module
+    from fiode_tpu_torch.ops import fused_qp as fused_qp_module
     from fiode_tpu_torch.ops import fused_rhs as fused_rhs_module
     from fiode_tpu_torch.ops.fused_rhs import RhsParams, fused_rhs, rhs_reference
 
@@ -3061,19 +3110,21 @@ def main() -> None:
     certifies = phases in ("all", "certify", "cli", "drivers", "bench")
     if phases in ("all", "certify", "cli", "drivers"):
         builds.append(lambda: load_cpp_library("grid_enum"))
-    if certifies:  # K4 at the certify configuration's widths
+    if certifies:  # K4 and K5 at the certify configuration's widths
         builds.append(lambda: fused_crown_module.build(N_CLASSES, MLP, MLP,
                                                        N_CLASSES))
+        builds.append(lambda: fused_qp_module.build(N_CLASSES))
     if phases == "all":
         builds.append(lambda: fused_rhs_module.build(WIDE_N, MLP))
     if phases in ("all", "drivers"):  # the dry run's 3-class, mlp-16 certifier
         builds.append(lambda: fused_rhs_module.build(3, 16))
         builds.append(lambda: fused_crown_module.build(3, 16, 16, 3))
+        builds.append(lambda: fused_qp_module.build(3))
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
     log(f"[2 build] K1 + K2 ({'three widths' if phases == 'all' else 'two widths' if phases == 'drivers' else 'one width'}) + K3 "
-        f"{'+ K4 ' if certifies else ''}"
+        f"{'+ K4 + K5 ' if certifies else ''}"
         f"{'+ grid_enum (g++) ' if phases in ('all', 'certify', 'cli', 'drivers') else ''}built in {build_s:.1f} s "
         f"into {BUILD_DIR}")
     # ptxas on every kernel; the main path's own (the flagship's K1, and its
@@ -3090,7 +3141,8 @@ def main() -> None:
                 flags = "".join(re.findall(r"Lb([01])E", name))
                 kernel = next((k for k in ("fused_rhs_backward_kernel",
                                            "fused_rhs_kernel",
-                                           "fused_crown_kernel") if k in name),
+                                           "fused_crown_kernel",
+                                           "fused_cone_qp_kernel") if k in name),
                               name[-40:])
                 log(f"    ptxas {p.stem[3:]} {kernel}<{flags}>: {info}")
                 hot = kernel == "fused_rhs_kernel" or flags.endswith("0")
@@ -3474,6 +3526,15 @@ def main() -> None:
          "ms": cert["crown"]["k4"]["ms"], "plain_ms": cert["crown"]["k4"]["plain_ms"],
          "bound_ms": cert["crown"]["k4"]["bound_ms"], "bound_by": "operations",
          "bound_fp32_ms": cert["crown"]["k4"]["bound_fp32_ms"], "library_ms": None},
+        {"name": "fused_qp", "route": "cuda",
+         "source": "fiode_tpu_torch/csrc/fused_qp.cu", "replaces": None,
+         "launches": cert["crown"]["k5"]["launches"],
+         "launches_by_phase": {"12 certify crown": cert["crown"]["k5"]["launches"],
+                               "14a refine crown BaB": cert["refine"]["k5_launches"]},
+         "max_rel_err": cert["crown"]["k5"]["max_rel_err"],
+         "ms": cert["crown"]["k5"]["ms"], "plain_ms": cert["crown"]["k5"]["plain_ms"],
+         "bound_ms": cert["crown"]["k5"]["bound_ms"], "bound_by": "operations",
+         "library_ms": None},
     ]
     log(f"[done] phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     log(smi)

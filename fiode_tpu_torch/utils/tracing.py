@@ -24,11 +24,11 @@ waiting for the device where a record's end event is still pending;
 ``clear()`` empties it.  ``utils/debug.trace`` writes a body's records
 as ``spans.jsonl`` beside its Chrome trace.
 
-Counter names: ``k1.launches`` / ``k2.launches`` / ``k3.launches`` (the
-kernel wrappers) and ``odeint.rejected`` (the adaptive solver's rejected
-steps).  What a span waits for on the device (its synchronising CUDA
-calls) and allocates there is read from a profiler's trace of it, not
-counted here: that sees the libraries' own calls too.
+Counter names: ``k1.launches`` to ``k5.launches`` (the kernel wrappers)
+and ``odeint.rejected`` (the adaptive solver's rejected steps).  What a
+span waits for on the device (its synchronising CUDA calls) and allocates
+there is read from a profiler's trace of it, not counted here: that sees
+the libraries' own calls too.
 """
 from __future__ import annotations
 

@@ -20,8 +20,10 @@ The Lipschitz and witness sweeps evaluate the projected dynamics at every
 grid point, (images x cells) rows at a time, through ``exact_field``: for
 ReLU dynamics ``ops.fused_rhs.fused_rhs``, which launches kernel K1 on a
 CUDA device and runs ``rhs_reference`` on the CPU, as the solve does; for
-GroupSort dynamics the dynamics' own ``eval_dot``.  CROWN's products are ``torch.matmul`` / ``einsum`` and
-the interval QP is plain elementwise PyTorch.
+GroupSort dynamics the dynamics' own ``eval_dot``.  A CROWN chunk's bounds
+and interval QP launch kernels K4 (``ops/fused_crown``) and K5
+(``ops/fused_qp``) on a CUDA device where their routes take the call (no
+gradient to carry), and run their plain PyTorch chains otherwise.
 
 With a ``mesh`` (``parallel/mesh.Mesh``) each block is split by the JAX
 package's placement rules: a 1-D mesh of any axis name splits the cells of

@@ -12,19 +12,26 @@ scale-nominal sigmoid, plus the worst-case Vdot of the margin candidate
   * ``worst_case_vdot``: -f_y^lb + the max over the runner-up set of f^ub,
     the runner-up set widened by 2 eps.
 
-The QP is a fixed-iteration bisection in plain elementwise PyTorch
-operations (``ops/simplex_qp.py``); ``method`` picks the cone projection's
-dual search and is an argument, ``bisect`` by default.
+``ibp_cbf_qp_band`` launches kernel K5 (``ops/fused_qp``), which runs the
+2 n cone bisections of each cell in registers, where its route takes the
+call (CUDA float32 (N, n) inputs, the cone barrier, ``method="bisect"``,
+no gradient to carry), and ``ibp_cbf_qp_band_reference``, K5's plain
+version, otherwise: the fixed-iteration bisection in plain elementwise
+PyTorch operations (``ops/simplex_qp.py``), with the projections'
+closed-form VJPs.  ``method`` picks the cone projection's dual search and
+is an argument, ``bisect`` by default.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops import fused_qp
 from ..ops.simplex_qp import simplex_box_project, simplex_cone_project
 from .crown import Eps, _is_scalar
 
 __all__ = ["ibp_sigmoid", "ibp_cbf_qp", "ibp_cbf_qp_band",
-           "ibp_cbf_qp_individual", "worst_case_vdot"]
+           "ibp_cbf_qp_band_reference", "ibp_cbf_qp_individual",
+           "worst_case_vdot"]
 
 
 def ibp_sigmoid(f_lb, f_ub, h_lb, h_ub, alpha_1, sigma_1, alpha_2):
@@ -44,7 +51,24 @@ def ibp_cbf_qp_band(h_lb, h_ub, lb, ub, alpha_1, sigma_1, alpha_2, *,
                     with_upper: bool = False, qp_iters: int = 30,
                     method: str = "bisect"):
     """Worst-case per-coordinate bounds of QP(lower(h'), f~') over an
-    explicit box [h_lb, h_ub].
+    explicit box [h_lb, h_ub] (arguments and result as
+    ``ibp_cbf_qp_band_reference``): one launch of kernel K5 where
+    ``fused_qp.takes`` the call, the plain chain otherwise."""
+    if fused_qp.takes(h_lb, h_ub, lb, ub, alpha_1, sigma_1, with_upper,
+                      method):
+        return fused_qp.fused_cone_qp_bounds(h_lb, h_ub, lb, ub, alpha_1,
+                                             sigma_1, qp_iters)
+    return ibp_cbf_qp_band_reference(h_lb, h_ub, lb, ub, alpha_1, sigma_1,
+                                     alpha_2, with_upper=with_upper,
+                                     qp_iters=qp_iters, method=method)
+
+
+def ibp_cbf_qp_band_reference(h_lb, h_ub, lb, ub, alpha_1, sigma_1, alpha_2,
+                              *, with_upper: bool = False, qp_iters: int = 30,
+                              method: str = "bisect"):
+    """Worst-case per-coordinate bounds of QP(lower(h'), f~') over an
+    explicit box [h_lb, h_ub], in plain PyTorch (kernel K5's plain version;
+    differentiable through the projections' VJPs).
 
     Args:
       h_lb/h_ub: (N, n) per-cell state box.

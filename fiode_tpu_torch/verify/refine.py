@@ -11,9 +11,11 @@ Per image, the whole grid is swept again in label space at the uniform
 half-width 1/T (the refined certificate does not trust the caller's
 verdicts), the violated cells are collected on the device, and the frontier
 of open boxes, centres (R, n) and per-dimension half-widths (R, n), stays on
-the device.  Sweeps and rounds evaluate ``chunk * superchunk`` rows a call
-(at 8192 rows a call the interval QP's 60 bisection steps, ~300 small
-launches, would leave the device waiting on the host).  A round bounds
+the device.  Sweeps and rounds evaluate ``chunk * superchunk`` rows a call: a
+sweep's call is a few launches (kernels K4 and K5 take its CROWN bounds and
+interval QP), but a round's split heuristic runs the plain chains, the
+interval QP's 60 bisection steps alone ~550 small launches, which at 8192
+rows a call would leave the device waiting on the host.  A round bounds
 every live box, keeps the open ones (``~(vals <= 0)``: a NaN bound stays open) and splits each
 along its chosen dimension; its one host read is the open count.
 

@@ -683,3 +683,111 @@ def test_crown_block_launches_k4_once_per_chunk(cuda):
         assert res.clean.all()
         assert counters().get("k4.launches", 0) - before == per_chunk * (
             -(-chunks // 16) * 16)
+
+
+# -- K5: the interval QP of a CROWN chunk --------------------------------------
+# The inputs (random boxes and the adversarial rows) and the tolerance (the
+# bisection's terminal bracket plus the round-off of its row sums taken in
+# two orders) are the CPU plan's: tests/test_torch_fused_qp_plan.py.
+
+
+def _k5_inputs(N, n, seed, device):
+    from test_torch_fused_qp_plan import boxes
+    return [t.to(device) for t in boxes(N, n, seed)]
+
+
+@pytest.mark.parametrize("N,n", [(131072, 10), (1000, 10), (777, 3),
+                                 (513, 16)])
+def test_fused_qp_matches_plain(cuda, N, n):
+    """K5 against the plain chain at a certify chunk's rows (16 images x
+    8,192 cells) and at ragged counts and other widths: random boxes on and
+    around the simplex, every coordinate clamped (sum of the barriers 0),
+    ties in nominal - lower, h at 0 and at 1, and the zero rows that pad a
+    block's last chunk.  The clamped and tied rows, whose sums have one
+    sign in any order, agree bit for bit."""
+    from test_torch_fused_qp_plan import A1, A2, S1, qp_tolerance
+    from fiode_tpu_torch.verify.ibp_qp import (ibp_cbf_qp_band,
+                                               ibp_cbf_qp_band_reference)
+    args = _k5_inputs(N, n, N + n, cuda)
+    with torch.no_grad():
+        before = counters().get("k5.launches", 0)
+        got = ibp_cbf_qp_band(*args, A1, S1, A2)
+        assert counters().get("k5.launches", 0) == before + 1
+        want = ibp_cbf_qp_band_reference(*args, A1, S1, A2)
+        again = ibp_cbf_qp_band(*args, A1, S1, A2)
+        tol = qp_tolerance(*args, 30)
+    q = max(N // 16, 1)
+    exact = slice(N - 5 * q, N - 3 * q)
+    for g, w, t in zip(got, want, tol):
+        over = (g - w).abs() - t
+        assert bool((over <= 0).all()), float(over.max())
+        assert torch.equal(g[exact], w[exact])
+    # no atomics: repeated launches are bit-identical
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_qp_keeps_nans_where_the_plain_chain_has_them(cuda):
+    """A NaN in a raw bound makes every projection whose row holds it NaN,
+    as torch.maximum, amin and amax propagate it; an infinite bound gives
+    the plain chain's values."""
+    from test_torch_fused_qp_plan import A1, A2, S1
+    from fiode_tpu_torch.verify.ibp_qp import (ibp_cbf_qp_band,
+                                               ibp_cbf_qp_band_reference)
+    h_lb, h_ub, lb, ub = _k5_inputs(64, 10, 3, cuda)
+    lb[0, 3] = float("nan")
+    ub[1, 0] = float("nan")
+    ub[2, 5] = float("inf")
+    lb[3, 7] = float("-inf")
+    with torch.no_grad():
+        got = ibp_cbf_qp_band(h_lb, h_ub, lb, ub, A1, S1, A2)
+        want = ibp_cbf_qp_band_reference(h_lb, h_ub, lb, ub, A1, S1, A2)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert int(torch.isnan(w).sum()) >= 10
+        keep = ~torch.isnan(w)
+        assert torch.equal(torch.isinf(g[keep]), torch.isinf(w[keep]))
+
+
+def test_qp_takes_the_plain_chain_off_k5s_route(cuda):
+    """The two-sided branch, the closed-form methods and a call that needs
+    gradients never launch K5 and give the plain chain's bounds; the
+    gradient one still carries its graph."""
+    from test_torch_fused_qp_plan import A1, A2, S1
+    from fiode_tpu_torch.verify.ibp_qp import (ibp_cbf_qp, ibp_cbf_qp_band,
+                                               ibp_cbf_qp_band_reference)
+    h_lb, h_ub, lb, ub = _k5_inputs(4096, 10, 4, cuda)
+    before = counters().get("k5.launches", 0)
+    with torch.no_grad():
+        for kw in ({"with_upper": True}, {"method": "exact"},
+                   {"method": "sort"}):
+            got = ibp_cbf_qp_band(h_lb, h_ub, lb, ub, A1, S1, A2, **kw)
+            want = ibp_cbf_qp_band_reference(h_lb, h_ub, lb, ub, A1, S1, A2,
+                                             **kw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    centre = 0.5 * (h_lb + h_ub)
+    eps = torch.full_like(centre, 1.0 / 40).requires_grad_()
+    f_lb, f_ub = ibp_cbf_qp(centre, eps, lb, ub, A1, S1, A2)
+    (g,) = torch.autograd.grad((f_ub - f_lb).sum(), eps)
+    assert bool(torch.isfinite(g).all())
+    assert counters().get("k5.launches", 0) == before
+
+
+def test_crown_block_launches_k5_once_per_chunk(cuda):
+    """The certifier's block of K chunks launches K5 K times, and the
+    alpha-CROWN block launches it for every score and the final bounds (its
+    gradient steps differentiate through the plain chain)."""
+    from fiode_tpu_torch.verify.certify import Certifier
+    model = _tiny_classifier(7).to(cuda)
+    x = torch.rand(3, 1, 8, 8, generator=torch.Generator().manual_seed(8))
+    x = x.to(cuda)
+    with torch.no_grad():
+        y = model.predict(x).argmax(-1)
+    for alpha_iters, per_chunk in ((0, 1), (2, 4)):
+        cert = Certifier(model, T=8, eps_input=0.1, chunk=64,
+                         alpha_iters=alpha_iters)
+        before = counters().get("k5.launches", 0)
+        res = cert.certify(x, y, method="crown", early_exit=False)
+        chunks = -(-1839 // 64)
+        assert res.clean.all()
+        assert counters().get("k5.launches", 0) - before == per_chunk * (
+            -(-chunks // 16) * 16)
