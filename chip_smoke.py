@@ -785,6 +785,21 @@ def grid_phase(dev):
     return model, grid, x, y
 
 
+def k4_ptxas() -> tuple:
+    """(registers, spill store bytes) ptxas reports for the flagship's K4,
+    the most of its four variants."""
+    from fiode_tpu_torch.ops._build import BUILD_DIR
+    regs = spill = 0
+    for p in BUILD_DIR.glob(f"libfused_crown-*-fiode_crown_n{N_CLASSES}-"
+                            f"fiode_crown_m1{MLP}-fiode_crown_m2{MLP}-"
+                            f"fiode_crown_out{N_CLASSES}.log"):
+        text = p.read_text()
+        regs = max([regs, *map(int, re.findall(r"Used (\d+) registers", text))])
+        spill = max([spill, *map(int, re.findall(r"(\d+) bytes spill stores",
+                                                 text))])
+    return regs, spill
+
+
 def crown_phase(model, grid, x, y, dev) -> dict:
     """[12 CROWN] the sweep on CROWN_IMAGES against the artifact's certified
     set; one block by stage; bench_certify.py's synthetic sweep."""
@@ -793,8 +808,11 @@ def crown_phase(model, grid, x, y, dev) -> dict:
     from fiode_tpu_torch.utils.tracing import counters
     from fiode_tpu_torch.verify.certify import (SUPERCHUNK, Certifier,
                                                 float32_matmuls)
-    from fiode_tpu_torch.verify.crown import (crown_bounds_reference,
-                                              crown_mlp_bounds)
+    from fiode_tpu_torch.ops.fused_crown import PASS, layer3_columns
+    from fiode_tpu_torch.verify.crown import (_backward_from,
+                                              crown_bounds_reference,
+                                              crown_mlp_bounds,
+                                              relu_relaxation)
     from fiode_tpu_torch.verify.ibp_qp import (ibp_cbf_qp,
                                                ibp_cbf_qp_band_reference,
                                                worst_case_vdot)
@@ -900,6 +918,26 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         row_gap = torch.maximum(*((a - r).abs().amax(1)
                                   for a, r in zip((lb, ub), ref))) / scale
         k4_err, k4_off = float(row_gap.max()), int((row_gap > K4_TOL).sum())
+        # what K4's lists hold on these rows, from the plain chain: layer 1's
+        # neurons not off (layer 3's columns) and unstable ones, layer 2's
+        l1, u1 = _backward_from(1, cert.Ws, cert.bs, [], eta_l, cert.eps, x_rows)
+        l2, u2 = _backward_from(2, cert.Ws, cert.bs, [relu_relaxation(l1, u1)],
+                                eta_l, cert.eps, x_rows)
+        n1, n2 = layer3_columns(l1, u1), layer3_columns(l2, u2)
+        us1, us2 = (((l < 0) & (u > 0)).sum(-1) for l, u in ((l1, u1), (l2, u2)))
+        # a warp's rows take ceil(longer list / 16) columns a lane, PASS a pass
+        cols = (torch.maximum(n1[0::2], n1[1::2]) + 15) // 16
+        plan = {"live_share": float(n1.float().mean()) / MLP,
+                "columns_per_lane": float(cols.float().mean()),
+                "over_4_columns": float((cols > 4).float().mean()),
+                "two_passes": float((cols > PASS).float().mean()),
+                # the multiply-adds K4 does on them: layer 2's S and s
+                # over the live list, D and d over the unstable one;
+                # layer 3's two products and its . W1 over the live list
+                "fma": float(((n1 + us1) * MLP * (N_CLASSES + 1)
+                              + (n2 + us2) * N_CLASSES * n1
+                              + 2 * N_CLASSES * (N_CLASSES + 1) * n1)
+                             .double().sum())}
         qp_ref = ibp_cbf_qp_band_reference(h_lb, h_ub, lb, ub, a1, s1, a2)
         k5_err = max(float((g - r).abs().max()) for g, r in
                      zip((f_lb, f_ub), qp_ref)) / max(
@@ -922,8 +960,19 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         f"({t['crown_plain'] / t['crown']:.1f}x K4) | max gap to the plain "
         f"path {k4_err:.2e} of the bounds' largest, {k4_off} rows over "
         f"{K4_TOL:g} (a slope taken the other way at a tie u = -l)")
+    b_lists = 1e3 * 2 * plan["fma"] / FP32_FLOPS
+    regs, spill = k4_ptxas()
+    log(f"[12 K4 lists] layer 3 ran over {100 * plan['live_share']:.1f}% of "
+        f"layer 1's columns: {plan['columns_per_lane']:.2f} columns a lane of "
+        f"{MLP // 16} on average, {100 * plan['over_4_columns']:.1f}% of the "
+        f"warps more than 4, {100 * plan['two_passes']:.1f}% two passes | "
+        f"the multiply-adds K4 does on them: {plan['fma'] / 1e9:.2f} G, "
+        f"{b_lists:.3f} ms on the fp32 cores ({100 * b_lists / t['crown']:.1f}% "
+        f"of K4's time) | ptxas: {regs} registers, {spill} bytes spilled")
     if k4_timed != 4:
         raise RuntimeError(f"K4 launched {k4_timed} times for 4 calls")
+    if spill:
+        raise RuntimeError(f"K4 spills {spill} bytes at the flagship's shape")
     if k4_off > K4_TIED_ROWS:
         raise RuntimeError(f"K4 parts from the plain path on {k4_off} rows")
     # K5's bound: 2 n projections of n lanes, 3 operations a lane and
@@ -968,7 +1017,9 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         f"{bench_certify.N_INNER * C * I / best * 1e3:,.0f} image-cells/s")
     return {"launches": launches, "rate": rate,
             "k4": {"launches": k4, "ms": t["crown"], "plain_ms": t["crown_plain"],
-                   "bound_ms": b3, "bound_fp32_ms": b32, "max_rel_err": k4_err},
+                   "bound_ms": b3, "bound_fp32_ms": b32, "max_rel_err": k4_err,
+                   "bound_lists_ms": b_lists, "registers": regs,
+                   "spill_bytes": spill, **plan},
             "k5": {"launches": k5, "ms": t["qp"], "plain_ms": t["qp_plain"],
                    "bound_ms": b5, "max_rel_err": k5_err}}
 

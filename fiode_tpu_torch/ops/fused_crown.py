@@ -35,14 +35,15 @@ import torch
 from ..utils import tracing
 from ._build import load_library
 
-__all__ = ["ROWS", "LANES", "SMEM_LIMIT", "MAX_ACCUMULATORS",
-           "shared_memory_bytes", "accumulators", "check_domain", "route",
-           "facts", "takes", "fused_crown_bounds", "build"]
+__all__ = ["LANES", "PASS", "SMEM_LIMIT", "MAX_ACCUMULATORS", "rows",
+           "shared_memory_bytes", "accumulators", "check_domain",
+           "layer3_columns", "route", "facts", "takes", "fused_crown_bounds",
+           "build"]
 
-ROWS = 16     # rows of a block's tile
 LANES = 16    # threads of a row; thread t owns columns t, t + 16, ...
+PASS = 8      # layer 3: columns of layer 1's list a lane takes in a pass
 SMEM_LIMIT = 232448       # dynamic shared memory a block may have on sm_90
-MAX_ACCUMULATORS = 176    # sums a thread keeps in its 255 registers: the flagship's
+MAX_ACCUMULATORS = 176    # sums a thread keeps in 255 registers: the flagship's
 
 
 def _cols(m: int) -> int:
@@ -50,29 +51,47 @@ def _cols(m: int) -> int:
     return -(-m // LANES)
 
 
-@functools.lru_cache(maxsize=64)
-def shared_memory_bytes(n: int, m1: int, m2: int, out: int) -> int:
-    """Shared memory of one block of K4, as ``csrc/fused_crown.cu`` lays it
-    out: per row, layer 1's two float4 stages (the first one reused by
-    layer 2's float4 stage), layer 2's float2 stage, the lists of neurons
-    (16-bit) and their four lengths, eta, eps and layer 3's bias terms; W3^T
-    and |W3|^T at a row stride of out rounded up to 4, W1 at an odd
-    multiple of 4 floats, W2 at the odd row stride m1p + 1, the biases."""
+def accumulators(n: int, m1: int, m2: int, out: int) -> int:
+    """Registers a thread sums into: layer 2's S, D (n each) and s, d of
+    its m2 columns, or layer 3's two forms (out each) of a pass's columns
+    of layer 1's list (at most PASS)."""
+    return max((2 * n + 2) * _cols(m2), 2 * out * min(PASS, _cols(m1)))
+
+
+def _layout(n: int, m1: int, m2: int, out: int) -> tuple:
+    """(floats of the weights, floats a row) of ``csrc/fused_crown.cu``'s
+    shared memory: W3^T at a row stride of out rounded up to 4, W1 at an
+    odd multiple of 4 floats, W2 at the odd row stride m1p + 1, the biases;
+    per row layer 1's float4 stage, layer 2's float2 stage, the 2 out x
+    (n + 1) slots of layer 3's sums, the four lists of neurons (16-bit) and
+    their lengths, eta, eps and layer 3's bias terms."""
     m1p, m2p = LANES * _cols(m1), LANES * _cols(m2)
     s1 = -(-n // 4) * 4
     s1 += 4 * (s1 // 4 % 2 == 0)
     s3 = -(-out // 4) * 4
-    per_row = (4 * max(m1p, m2p) + 4 * m1p + 2 * m2p + (m1p + m2p) + 4
+    weights = m2p * s3 + m1p * s1 + m2p * (m1p + 1) + m1p + m2p + out
+    per_row = (4 * m1p + 2 * m2p + 2 * out * (n + 1) + (m1p + m2p) + 4
                + 2 * n + 2 * out)
-    floats = (ROWS * per_row + 2 * m2p * s3 + m1p * s1 + m2p * (m1p + 1)
-              + m1p + m2p + out)
-    return 4 * floats
+    return weights, per_row
 
 
-def accumulators(n: int, m1: int, m2: int, out: int) -> int:
-    """Registers a thread sums into: layer 2's S, D (n each) and s, d of
-    its m2 columns, or layer 3's two forms (out each) of its m1 columns."""
-    return max((2 * n + 2) * _cols(m2), 2 * out * _cols(m1))
+def _fits(n: int, m1: int, m2: int, out: int, r: int) -> bool:
+    weights, per_row = _layout(n, m1, m2, out)
+    return 4 * (r * per_row + weights) <= SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=64)
+def rows(n: int, m1: int, m2: int, out: int) -> int:
+    """Rows of K4's block: 16, or the most of 8, 4, 2 that fit in shared
+    memory (2 where nothing fits: ``check_domain`` refuses it)."""
+    return next((r for r in (16, 8, 4) if _fits(n, m1, m2, out, r)), 2)
+
+
+def shared_memory_bytes(n: int, m1: int, m2: int, out: int) -> int:
+    """Shared memory of one block of K4, as ``csrc/fused_crown.cu`` lays it
+    out for ``rows(n, m1, m2, out)`` rows."""
+    weights, per_row = _layout(n, m1, m2, out)
+    return 4 * (rows(n, m1, m2, out) * per_row + weights)
 
 
 def check_domain(n: int, m1: int, m2: int, out: int) -> None:
@@ -90,6 +109,16 @@ def check_domain(n: int, m1: int, m2: int, out: int) -> None:
             f"fused_crown: n = {n}, m1 = {m1}, m2 = {m2}, out = {out} sums "
             f"into {acc} registers a thread, more than the "
             f"{MAX_ACCUMULATORS} K4 keeps without spilling")
+
+
+def layer3_columns(l1: torch.Tensor, u1: torch.Tensor) -> torch.Tensor:
+    """(N,) the columns layer 3 of K4 runs over for each row: its layer-1
+    neurons not off on the box, from their pre-activation bounds l1, u1
+    (N, m1).  A neuron is off (zero slopes and lines) where u1 <= 0 < -l1;
+    stable on (l1 >= 0) or unstable (l1 < 0 < u1) it has a positive upper
+    slope.  A row's list takes ceil(count / (16 PASS)) passes; a warp takes
+    those of the longer of its two rows."""
+    return ((u1 > 0) | (l1 >= 0)).sum(-1)
 
 
 def route(device_type: str, dtype: torch.dtype, layers: int, n: int, m2: int,
@@ -136,16 +165,20 @@ def _bind(lib) -> ctypes.CDLL:
     lib.fused_crown_smem_bytes.restype = ctypes.c_longlong
     lib.fused_crown_smem_limit.argtypes = []
     lib.fused_crown_smem_limit.restype = ctypes.c_longlong
+    lib.fused_crown_rows.argtypes = []
+    lib.fused_crown_rows.restype = ctypes.c_int
     lib.fused_crown_error_string.argtypes = [ctypes.c_int]
     lib.fused_crown_error_string.restype = ctypes.c_char_p
     # the source and this module lay out shared memory independently
     n, m1, m2, out = (lib.fused_crown_shape(i) for i in range(4))
-    got = (lib.fused_crown_smem_bytes(), lib.fused_crown_smem_limit())
-    want = (shared_memory_bytes(n, m1, m2, out), SMEM_LIMIT)
+    got = (lib.fused_crown_smem_bytes(), lib.fused_crown_smem_limit(),
+           lib.fused_crown_rows())
+    want = (shared_memory_bytes(n, m1, m2, out), SMEM_LIMIT,
+            rows(n, m1, m2, out))
     if got != want:
         raise RuntimeError(f"fused_crown library for {(n, m1, m2, out)} "
-                           f"takes {got} bytes of shared memory (and "
-                           f"limit), the wrapper expects {want}")
+                           f"takes {got} bytes of shared memory (limit, "
+                           f"rows a block), the wrapper expects {want}")
     return lib
 
 

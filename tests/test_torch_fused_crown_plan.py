@@ -4,16 +4,22 @@ K4 (``csrc/fused_crown.cu``) runs only on the card.  What it does per row
 is mirrored here in float64 numpy, stage by stage, and held to
 ``crown_mlp_bounds`` (whose CPU route is the plain chain) in float64:
 
-  * layer 1's relaxation and its two stages, and the lists of neurons each
-    of layer 2's products runs over (not off: S and s; unstable: D and d),
+  * layer 1's relaxation and its stage, and the lists of neurons each of
+    layer 2's products runs over (not off: S and s; unstable: D and d),
     made as the kernel makes them, a ballot over a row's 16 lanes per
     column;
   * layer 2's factored products over those lists, their concretisation as
     the products' epilogue, and the relaxation;
   * layer 3's bias terms summed over each lane's columns and then over the
-    lanes, its two scaled products of W3 and |W3| with W2 over layer 2's
-    lists, and the per-lane split against layer 1's slopes, its last
-    product with W1 and the concretisation after the lanes' sum.
+    lanes by the kernel's halving steps;
+  * layer 3 over layer 1's list of neurons not off, in passes: a warp's
+    two rows take as many passes as the longer list needs, 16 entries a
+    column and at most ``fused_crown.PASS`` columns a lane a pass (one pass
+    up to m1 = 128); in each
+    the two scaled products of W3 and |W3| with W2 over layer 2's lists,
+    the per-lane split against layer 1's slopes, its bias terms and the
+    product with W1, summed over the lanes into the row's slots; the
+    concretisation from the slots.
 
 Change the kernel and this mirror together.  The route rule
 (``fused_crown.route``) is held for each caller of ``crown_mlp_bounds`` on
@@ -29,6 +35,7 @@ from fiode_tpu_torch.ops import fused_crown
 from fiode_tpu_torch.verify.crown import crown_mlp_bounds
 
 LANES = fused_crown.LANES
+PASS = fused_crown.PASS
 PLAN_TOL = 1e-12  # float64 sums in two orders, over the bounds' magnitude
 
 
@@ -84,8 +91,66 @@ def _concretise(L, c, sign, eta, eps):
     return (dot + c) + sign * rad
 
 
-def k4_plan(Ws, bs, eta, eps, x_bias, alphas=None):
-    """K4's stages in float64: (lb, ub), each (rows, out)."""
+def row_sums(parts):
+    """The kernel's row_sums() over parts (..., 16 lanes, V): four halving
+    steps over the lanes t and t ^ s (s = 8, 4, 2, 1).  Of each pair of
+    values the lane whose bit s is clear keeps the first and its partner
+    the second, and each adds the other's copy; an odd last value is added
+    whole.  Returns (sums, ids, own), each (..., 16 lanes, R): lane t's
+    q-th sum is that of value ids[t, q], written by the lane with own."""
+    lanes, V = parts.shape[-2:]
+    t = np.arange(lanes)
+    v = parts
+    ids = np.broadcast_to(np.arange(V), (lanes, V))
+    own = np.ones((lanes, V), bool)
+    for s in (8, 4, 2, 1):
+        hi = (t & s) != 0
+        partner = v[..., t ^ s, :]
+        m = v.shape[-1]
+        nv, nid, nown = [], [], []
+        for q in range(m // 2):
+            keep = np.where(hi, v[..., 2 * q + 1], v[..., 2 * q])
+            got = np.where(hi, partner[..., 2 * q + 1], partner[..., 2 * q])
+            nv.append(keep + got)
+            nid.append(np.where(hi, ids[:, 2 * q + 1], ids[:, 2 * q]))
+            nown.append(np.where(hi, own[:, 2 * q + 1], own[:, 2 * q]))
+        if m % 2:
+            nv.append(v[..., m - 1] + partner[..., m - 1])
+            nid.append(ids[:, m - 1])
+            nown.append(own[:, m - 1] & ~hi)
+        v, ids, own = (np.stack(nv, -1), np.stack(nid, -1),
+                       np.stack(nown, -1))
+    return v, ids, own
+
+
+def _gather(parts):
+    """(..., V): each value's sum over the lanes, as its writing lane holds
+    it after ``row_sums``."""
+    sums, ids, own = row_sums(parts)
+    out = np.zeros(parts.shape[:-2] + parts.shape[-1:])
+    for t, q in zip(*np.nonzero(own)):
+        out[..., ids[t, q]] = sums[..., t, q]
+    return out
+
+
+def passes(n1):
+    """Per row, the layer-3 passes its warp takes, as (first column, columns
+    a lane): those of the longer list of the row and its partner (rows 2 w
+    and 2 w + 1; an odd last row alone), 16 entries a column, at most PASS
+    columns a lane a pass, the last as wide as what is left."""
+    n1 = np.asarray(n1)
+    longer = np.maximum(n1, np.append(n1, 0)[np.arange(len(n1)) ^ 1])
+    out = []
+    for m in longer:
+        cols = -(-int(m) // LANES)
+        out.append([(g, min(PASS, cols - g)) for g in range(0, cols, PASS)])
+    return out
+
+
+def k4_plan(Ws, bs, eta, eps, x_bias, alphas=None, stats=None):
+    """K4's stages in float64: (lb, ub), each (rows, out).  ``stats``, a
+    dict, receives each row's count of layer-1 columns layer 3 ran over
+    (``n1``) and its warp's passes (``passes``)."""
     (W1, W2, W3), (b1, b2, b3) = Ws, bs
     rows, n = eta.shape
     m1, m2, out = W1.shape[0], W2.shape[0], W3.shape[0]
@@ -100,7 +165,8 @@ def k4_plan(Ws, bs, eta, eps, x_bias, alphas=None):
         a2 = _pad(np.broadcast_to(alphas[1], (rows, m2)), (rows, m2p))
     in1, in2 = np.arange(m1p) < m1, np.arange(m2p) < m2
 
-    # layer 1: the stages and the lists
+    # layer 1: the stage (a_up, a_lo, b_up, b1 + x_bias) and the lists; what
+    # layer 2 takes of it is made from it at use
     z = (eta @ W1p.T + b1p) + xb
     rad = eps_r @ np.abs(W1p).T
     a_up, b_up, a_lo = _relax(z - rad, z + rad, a1)
@@ -129,39 +195,56 @@ def k4_plan(Ws, bs, eta, eps, x_bias, alphas=None):
     unst2 = _lists(in2 & (adiff2 != 0))
 
     # layer 3's bias terms: each lane over its columns o2 = t + 16 c, then
-    # the lanes' sum
+    # the lanes' halving sums
     wp, wn = np.maximum(W3p, 0), np.minimum(W3p, 0)
     pu = wp * b_up2[:, None] + (wp * a_up2[:, None] + wn * a_lo2[:, None]) * b2p
     pl = wn * b_up2[:, None] + (wp * a_lo2[:, None] + wn * a_up2[:, None]) * b2p
     lane = lambda v: v.reshape(*v.shape[:-1], -1, LANES).sum(-2)  # noqa: E731
-    c3u, c3l = lane(pu).sum(-1), lane(pl).sum(-1)
+    c3 = _gather(np.concatenate([lane(pu), lane(pl)], 1).transpose(0, 2, 1))
 
-    # layer 3: the two scaled products over layer 2's lists
-    A, B = np.zeros((rows, out, m1p)), np.zeros((rows, out, m1p))
+    # layer 3 over layer 1's list, in passes; the slots hold each side's
+    # form over eta (n) and its constant, summed over lanes and passes
+    n1 = [len(lst) for lst in live1]
+    plan = passes(n1)
+    slots = np.zeros((rows, 2 * out, n + 1))
     for r in range(rows):
-        for i in live2[r]:
-            A[r] += np.outer(asum2[r, i] * W3p[:, i], W2p[i])
-        for i in unst2[r]:
-            B[r] += np.outer(adiff2[r, i] * np.abs(W3p[:, i]), W2p[i])
-    vu, vl = 0.5 * (A + B), 0.5 * (A - B)
-    up, un = np.maximum(vu, 0), np.minimum(vu, 0)
-    lp, ln = np.maximum(vl, 0), np.minimum(vl, 0)
-    au, al = a_up[:, None, :], a_lo[:, None, :]
-    Lu, Ll = up * au + un * al, lp * al + ln * au
-    cu = lane(up * b_up[:, None] + Lu * b1_row[:, None]).sum(-1)
-    cl = lane(ln * b_up[:, None] + Ll * b1_row[:, None]).sum(-1)
-    # each lane's part of the last product, then the lanes' sum
-    fu = np.einsum("rojt,jtk->rok", Lu.reshape(rows, out, -1, LANES),
-                   W1p.reshape(-1, LANES, n))
-    fl = np.einsum("rojt,jtk->rok", Ll.reshape(rows, out, -1, LANES),
-                   W1p.reshape(-1, LANES, n))
-    ub = _concretise(fu.transpose(0, 2, 1), (b3 + c3u) + cu, 1.0, eta, eps_r)
-    lb = _concretise(fl.transpose(0, 2, 1), (b3 + c3l) + cl, -1.0, eta, eps_r)
+        for g, pc in plan[r]:
+            # lane t's columns: the list's entries 16 (g + c) + t
+            pos = (LANES * (g + np.arange(pc))[None, :]
+                   + np.arange(LANES)[:, None])
+            valid = pos < n1[r]
+            col = np.array(live1[r] + [0])[np.minimum(pos, n1[r])]
+            A, B = np.zeros((out, LANES, pc)), np.zeros((out, LANES, pc))
+            for i in live2[r]:
+                A += asum2[r, i] * W3p[:, i][:, None, None] * W2p[i][col]
+            for i in unst2[r]:
+                B += (adiff2[r, i] * np.abs(W3p[:, i])[:, None, None]
+                      * W2p[i][col])
+            q = [np.where(valid, v[r][col], 0.0)
+                 for v in (a_up, a_lo, b_up, b1_row)]
+            vu, vl = 0.5 * (A + B), 0.5 * (A - B)
+            up, un = np.maximum(vu, 0), np.minimum(vu, 0)
+            lp, ln = np.maximum(vl, 0), np.minimum(vl, 0)
+            Lu, Ll = up * q[0] + un * q[1], lp * q[1] + ln * q[0]
+            cp = np.concatenate([(up * q[2] + Lu * q[3]).sum(-1),
+                                 (ln * q[2] + Ll * q[3]).sum(-1)]).T
+            slots[r, :, n] += _gather(cp)
+            for k in range(n):
+                w = W1p[col, k]
+                f = np.concatenate([(Lu * w).sum(-1), (Ll * w).sum(-1)]).T
+                slots[r, :, k] += _gather(f)
+    if stats is not None:
+        stats["n1"], stats["passes"] = np.array(n1), [len(p) for p in plan]
+    fu, fl = slots[:, :out, :n], slots[:, out:, :n]
+    ub = _concretise(fu.transpose(0, 2, 1),
+                     (b3 + c3[:, :out]) + slots[:, :out, n], 1.0, eta, eps_r)
+    lb = _concretise(fl.transpose(0, 2, 1),
+                     (b3 + c3[:, out:]) + slots[:, out:, n], -1.0, eta, eps_r)
     return lb, ub
 
 
 SHAPES = {"flagship": (10, 128, 128, 10), "small": (3, 16, 16, 3),
-          "padded": (3, 20, 12, 3)}
+          "padded": (3, 20, 12, 3), "wide": (3, 160, 16, 3)}
 
 
 @pytest.mark.parametrize("with_alphas", [False, True])
@@ -193,6 +276,90 @@ def test_plan_takes_one_shared_bias_row():
     scale = max(float(w.abs().max()) for w in want)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=PLAN_TOL * scale)
+
+
+def _forced(seed, live, shape="flagship", rows=8):
+    """Draws whose rows 0 and 1 have exactly ``live`` layer-1 neurons on
+    (stable, by a bias far above the box) and the rest off (far below it);
+    the other rows are the usual draws."""
+    n, m1, m2, out = SHAPES[shape]
+    Ws, bs, x_bias, eta, eps_rows, alphas = _mlp(seed, n, m1, m2, out, rows)
+    on = np.zeros(m1, bool)
+    on[np.random.default_rng(seed).permutation(m1)[:live]] = True
+    x_bias[:2] = np.where(on, 50.0, -50.0)
+    return Ws, bs, x_bias, eta, eps_rows, alphas
+
+
+@pytest.mark.parametrize("variant", ["scalar", "per_row", "alpha",
+                                     "per_row_alpha"])
+@pytest.mark.parametrize("shape,live,widths", [
+    ("flagship", 0, []), ("flagship", 64, [4]), ("flagship", 65, [5]),
+    ("flagship", 128, [8]), ("wide", 160, [8, 2]), ("wide", 129, [8, 1])])
+def test_plan_passes_follow_the_live_list(shape, live, widths, variant):
+    """A warp whose rows have no live layer-1 neuron takes no pass of
+    layer 3; up to m1 = 128 one pass as wide as the longer list needs (64
+    live neurons: 4 columns a lane, 65: 5, all: 8); past 8 columns a lane a
+    second one; the bounds are crown_mlp_bounds' in every variant."""
+    Ws, bs, x_bias, eta, eps_rows, alphas = _forced(7 + live, live, shape)
+    eps = eps_rows if variant.startswith("per_row") else 1.0 / 40
+    alphas = alphas if variant.endswith("alpha") else None
+    stats = {}
+    got = k4_plan(Ws, bs, eta, eps, x_bias, alphas, stats)
+    assert stats["n1"][:2].tolist() == [live, live]
+    assert stats["passes"][:2] == [len(widths)] * 2
+    assert [pc for _, pc in passes(stats["n1"])[0]] == widths
+    t = torch.from_numpy
+    want = crown_mlp_bounds([t(W) for W in Ws], [t(b) for b in bs], t(eta),
+                            eps if not isinstance(eps, np.ndarray) else t(eps),
+                            t(x_bias),
+                            None if alphas is None else [t(a) for a in alphas])
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=PLAN_TOL * scale)
+
+
+def test_plan_shares_of_layer3_columns_match_the_plain_relaxation():
+    """The counts of layer-1 columns that chip_smoke.py reports from the
+    plain chain's layer-1 bounds (``fused_crown.layer3_columns``) are the
+    plan's on the same draws; at the flagship every warp takes one pass."""
+    from fiode_tpu_torch.verify.crown import _backward_from
+    n, m1, m2, out = SHAPES["flagship"]
+    Ws, bs, x_bias, eta, eps_rows, _ = _mlp(11, n, m1, m2, out, 64)
+    t = torch.from_numpy
+    for eps in (1.0 / 40, eps_rows):
+        stats = {}
+        k4_plan(Ws, bs, eta, eps, x_bias, None, stats)
+        box = eps if np.isscalar(eps) else t(eps)
+        l1, u1 = _backward_from(1, [t(W) for W in Ws], [t(b) for b in bs],
+                                [], t(eta), box, t(x_bias))
+        counts = fused_crown.layer3_columns(l1, u1).numpy()
+        np.testing.assert_array_equal(counts, stats["n1"])
+        share = counts.mean() / m1
+        wider = np.mean(counts > 64)  # rows whose list takes over 4 columns
+        assert 0.2 < share < 0.9 and 0.0 <= wider <= 1.0
+        assert stats["passes"] == [1] * len(counts)
+
+
+def test_row_sums_are_the_butterfly_bit_for_bit():
+    """The kernel's halving sums over 16 lanes give, in float32, each
+    value's butterfly sum exactly, in about one exchange a value."""
+    rng = np.random.default_rng(4)
+    for V in (20, 7, 2, 32):
+        parts = rng.normal(size=(3, LANES, V)).astype(np.float32)
+        fly = parts.copy()
+        for s in (8, 4, 2, 1):
+            fly = fly + fly[:, np.arange(LANES) ^ s]
+        sums, ids, own = row_sums(parts)
+        assert sums.dtype == np.float32
+        for t in range(LANES):
+            for q in range(ids.shape[1]):
+                np.testing.assert_array_equal(sums[:, t, q],
+                                              fly[:, t, ids[t, q]])
+        # each value written by exactly one lane
+        written = np.zeros(V, int)
+        for t, q in zip(*np.nonzero(own)):
+            written[ids[t, q]] += 1
+        assert written.tolist() == [1] * V
 
 
 def test_lists_run_in_increasing_order_and_skip_only_zeros():
@@ -227,12 +394,60 @@ def test_shapes_outside_the_domain_are_refused(shape, why):
 
 
 def test_shared_memory_grows_with_the_widths():
-    """The layout's size: per row the stages, lists and etas; the weights
-    once (W2 at the odd stride m1 + 1)."""
+    """The layout's size: per row the stages, slots, lists and etas; the
+    weights once (W2 at the odd stride m1 + 1); 16 rows a block."""
     base = fused_crown.shared_memory_bytes(10, 128, 128, 10)
-    assert base == 186664
+    assert base == 161832
+    assert fused_crown.rows(10, 128, 128, 10) == 16
     assert fused_crown.shared_memory_bytes(10, 112, 128, 10) < base
     assert fused_crown.shared_memory_bytes(3, 16, 16, 3) < 32768
+
+
+def _seed_accepts(n, m1, m2, out):
+    """The domain K4 had with layer 3 over all of m1 (two float4 stages a
+    layer-1 neuron, no slots): its shared memory and sums."""
+    cols = lambda m: -(-m // LANES)  # noqa: E731
+    m1p, m2p = LANES * cols(m1), LANES * cols(m2)
+    s1 = -(-n // 4) * 4
+    s1 += 4 * (s1 // 4 % 2 == 0)
+    s3 = -(-out // 4) * 4
+    per_row = (4 * max(m1p, m2p) + 4 * m1p + 2 * m2p + (m1p + m2p) + 4
+               + 2 * n + 2 * out)
+    floats = (16 * per_row + 2 * m2p * s3 + m1p * s1 + m2p * (m1p + 1)
+              + m1p + m2p + out)
+    acc = max((2 * n + 2) * cols(m2), 2 * out * cols(m1))
+    return 4 * floats <= fused_crown.SMEM_LIMIT and acc <= 176
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+def test_the_domain_keeps_every_shape_it_took(n):
+    """Every (n, m1, m2, out) with m1, m2 in 16-128 and out <= 16 that K4
+    took before it ran layer 3 over the live list is still taken, with its
+    block and sums inside the limits."""
+    widths = [16, 20, 33, 48, 64, 80, 96, 100, 112, 127, 128]
+    for m1 in widths:
+        for m2 in widths:
+            for out in range(1, 17):
+                if not _seed_accepts(n, m1, m2, out):
+                    continue
+                fused_crown.check_domain(n, m1, m2, out)
+                assert (fused_crown.shared_memory_bytes(n, m1, m2, out)
+                        <= fused_crown.SMEM_LIMIT)
+                assert (fused_crown.accumulators(n, m1, m2, out)
+                        <= fused_crown.MAX_ACCUMULATORS)
+
+
+def test_a_shape_refused_for_shared_memory_is_refused_before_any_build(
+        monkeypatch):
+    from fiode_tpu_torch.ops import _build
+    assert not _seed_accepts(3, 256, 256, 3)
+
+    def boom(*a, **k):
+        raise AssertionError("built a shape outside the domain")
+    monkeypatch.setattr(fused_crown, "load_library", boom)
+    monkeypatch.setattr(_build, "load_library", boom)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_crown.build(3, 256, 256, 3)
 
 
 # -- the route ---------------------------------------------------------------

@@ -607,8 +607,11 @@ def test_fused_crown_matches_plain(cuda, N, eps_kind, with_alphas):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("shape", [(3, 16, 16, 3), (3, 20, 12, 3)])
+@pytest.mark.parametrize("shape", [(3, 16, 16, 3), (3, 20, 12, 3),
+                                   (3, 160, 16, 3)])
 def test_fused_crown_takes_narrow_and_padded_widths(cuda, shape):
+    """Narrow and padded widths, and a layer 1 wider than one pass of
+    layer 3 (10 columns a lane: passes of 8 and 2)."""
     from fiode_tpu_torch.verify.crown import (crown_bounds_reference,
                                               crown_mlp_bounds)
     Ws, bs, eta, x_bias, eps_rows, alphas = _crown_inputs(1000, *shape, 11,
@@ -618,6 +621,27 @@ def test_fused_crown_takes_narrow_and_padded_widths(cuda, shape):
             before = counters().get("k4.launches", 0)
             got = crown_mlp_bounds(Ws, bs, eta, eps, x_bias, al)
             assert counters().get("k4.launches", 0) == before + 1
+            want = crown_bounds_reference(Ws, bs, eta, eps, x_bias, al)
+        _assert_k4_matches_plain(got, want,
+                                 _near_jumps(Ws, bs, eta, eps, x_bias, al))
+
+
+@pytest.mark.parametrize("live", [0, 64, 65, 128])
+def test_fused_crown_passes_follow_the_live_list(cuda, live):
+    """Rows whose layer-1 neurons are all off (no pass of layer 3), 64 on
+    (a pass of 4 columns a lane), 65 (5) and all on (8), beside rows of the
+    usual draws, with per-row eps and alpha-CROWN's slopes."""
+    from fiode_tpu_torch.verify.crown import (crown_bounds_reference,
+                                              crown_mlp_bounds)
+    Ws, bs, eta, x_bias, eps_rows, alphas = _crown_inputs(
+        4096, 10, 128, 128, 10, 40 + live, cuda)
+    on = torch.zeros(128, dtype=torch.bool)
+    g = torch.Generator().manual_seed(live)
+    on[torch.randperm(128, generator=g)[:live]] = True
+    x_bias[:2048] = torch.where(on, 50.0, -50.0).to(cuda)
+    for eps, al in ((1.0 / 40, None), (eps_rows, alphas)):
+        with torch.no_grad():
+            got = crown_mlp_bounds(Ws, bs, eta, eps, x_bias, al)
             want = crown_bounds_reference(Ws, bs, eta, eps, x_bias, al)
         _assert_k4_matches_plain(got, want,
                                  _near_jumps(Ws, bs, eta, eps, x_bias, al))
