@@ -1,6 +1,7 @@
 """Seconds from the process's start to the window's start: imports, the
-weights drawn on the card, the kernels loaded (built on a checkout's first
-run), the inputs, the warm-up of every shape the window uses (host clock)."""
+weights drawn on the card or read from a checkpoint, the kernels loaded
+(built on a checkout's first run), the inputs, the warm-up of every shape
+the window uses (host clock)."""
 
 
 def read(ctx):

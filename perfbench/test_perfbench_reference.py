@@ -85,7 +85,8 @@ def test_crown_block_matches_the_certifier():
     cert = Certifier(m, T=cfg["T"], eps_input=cfg["eps"], chunk=cfg["chunk"])
     assert len(cert.grid) == ref_crown.grid_count(10, cfg["T"])
     assert ref_crown.grid_faults(cert.grid, cfg["T"]) == 0
-    x = torch.rand(3, 3, 8, 8, generator=torch.Generator().manual_seed(3))
+    n = cfg["img_size"]
+    x = torch.rand(3, 3, n, n, generator=torch.Generator().manual_seed(3))
     labels = torch.tensor([0, 4, 9])
     etas, valids, _ = next(cert.iter_blocks(2))
     with torch.no_grad():

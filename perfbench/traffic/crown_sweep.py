@@ -2,12 +2,23 @@
 ``Certifier.iter_blocks`` of the real decision-boundary grid, for
 ``images`` images at once (the certify runner's ``--image-batch``), blocks
 of ``superchunk`` chunks of ``chunk`` cells, one host read of the images'
-worst values a block, from the grid's start until the window ends.
+worst values a block.  The window is the fewest whole sweeps of the grid,
+each from its first block to its padded last, that last at least the
+window's seconds, so that its rate is the grid's own average whatever the
+program's speed.
 
-Inputs: images uniform in [0, 1) and labels, drawn from the seed on the
-device; the feature biases x U^T + bU come from the program's backbone, as
+Inputs: the trained checkpoint that the configuration names
+(``checkpoint``: its path in the checkout and its sha256 digest; a file
+with another digest stops the run before its window), for the program and
+the reference alike; the images ``first`` .. ``first + images - 1`` of the
+synthetic test set that the mix names (``test_set``) and their labels, the
+certify runner's ``--image-batch`` on that set, in an order drawn from the
+seed.  Every seed sweeps the same images against the same labels, so that
+the work is the same and only its order moves: each image's cost follows
+which of the dynamics' ReLU units its features leave on.  The feature
+biases x U^T + bU come from the program's backbone, as
 ``Certifier.certify`` takes them.  The clean check is left out: every
-image is swept against its drawn label.
+image is swept against its label.
 
 Output check: ``check_blocks`` of the window's blocks, drawn from the seed,
 bounded again by the plain reference (features, Cayley weights, CROWN, the
@@ -21,12 +32,13 @@ then sweep other cells than the reference's).
 from __future__ import annotations
 
 import functools
+import itertools
 import time
 
 import numpy as np
 import torch
 
-from perfbench import harness, weights
+from perfbench import data, harness, weights
 from perfbench.reference import crown as ref_crown, model as ref
 
 __all__ = ["setup", "window", "traced_slice", "release", "check", "answers"]
@@ -45,42 +57,45 @@ def setup(cell: dict, seed: int, device) -> State:
     st.f32 = float32_matmuls
     model = harness.program_model(cfg, device)
     shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
-    st.params = weights.draw(shapes, harness.subseed(seed, 0), device)
+    ck = cfg["checkpoint"]
+    st.params = weights.checkpoint(harness.ROOT / ck["path"], ck["sha256"],
+                                   shapes, device)
     weights.load(model, st.params)
-    g = torch.Generator(device).manual_seed(harness.subseed(seed, 1))
-    I, c, n = mix["images"], cfg["in_channels"], cfg["img_size"]
-    st.images = torch.rand((I, c, n, n), generator=g, device=device)
-    st.labels = torch.randint(0, cfg["n_hidden"], (I,), generator=g,
-                              device=device)
+    ts, I = mix["test_set"], mix["images"]
+    xs, ys = data.synthetic_test_set(ts["seed"], ts["size"], cfg["n_hidden"],
+                                     cfg["in_channels"], cfg["img_size"],
+                                     ts["noise"])
+    rows = slice(ts["first"], ts["first"] + I)
+    order = torch.randperm(I, generator=torch.Generator().manual_seed(
+        harness.subseed(seed, 1)))
+    st.images = torch.from_numpy(xs[rows][order.numpy()]).to(device)
+    st.labels = torch.from_numpy(ys[rows][order.numpy()]).long().to(device)
     st.cert = Certifier(model, T=cfg["T"], eps_input=cfg["eps"],
                         chunk=cfg["chunk"])
     with torch.no_grad(), float32_matmuls():
         feats = model.features(st.images)
         st.x_biases = feats @ st.cert.U.T + st.cert.bU
     st.perms = label_perms(st.labels, cfg["n_hidden"])
-    st.blocks = _blocks(st)
     st.chunk_ms = functools.partial(chunk_ms, st)
-    _block(st)  # warm-up: the window's shapes
+    _block(st, next(_sweep(st))[1])  # warm-up: the window's shapes
     return st
 
 
-def _blocks(st):
-    """Block indices and blocks, from the grid's start, round again."""
-    while True:
-        for b, blk in enumerate(st.cert.iter_blocks(st.cfg["superchunk"])):
-            yield b, blk
+def _sweep(st: State):
+    """(index, block) over the whole grid, from its first block."""
+    return enumerate(st.cert.iter_blocks(st.cfg["superchunk"]))
 
 
-def _block(st: State):
-    """One block: its index, its cells and each image's worst value over it
+def _block(st: State, block):
+    """One block: its valid cells and each image's worst value over it
     (read to the host, as ``Certifier.certify`` reads it)."""
-    b, (etas, valids, n_valid) = next(st.blocks)
+    etas, valids, n_valid = block
     start = torch.full((st.labels.shape[0],), float("-inf"), device=st.device)
     with torch.no_grad(), st.f32():
         worst = st.cert.crown_block(st.x_biases, st.labels, st.perms, etas,
                                     valids, start)
         w = worst.cpu()
-    return b, n_valid, w
+    return n_valid, w
 
 
 def chunk_ms(st: State, part: str, iters: int = 3):
@@ -109,28 +124,32 @@ def chunk_ms(st: State, part: str, iters: int = 3):
 
 
 def window(st: State, seconds: float) -> None:
-    st.blocks = _blocks(st)  # the window starts at the grid's start
+    """Whole sweeps of the grid until the window has lasted ``seconds``."""
     ms, done, worsts = [], [], []
     if st.device.type == "cuda":
         torch.cuda.synchronize(st.device)
     t_start = time.perf_counter()
-    stop, t1, cells = t_start + seconds, t_start, 0
-    while t1 < stop:
-        t0 = time.perf_counter()
-        b, n_valid, w = _block(st)
-        t1 = time.perf_counter()
-        ms.append(1e3 * (t1 - t0))
-        done.append(b)
-        worsts.append(w)
-        cells += n_valid * st.labels.shape[0]
+    t1, cells, sweeps = t_start, 0, 0
+    while sweeps == 0 or t1 - t_start < seconds:
+        for b, block in _sweep(st):
+            t0 = time.perf_counter()
+            n_valid, w = _block(st, block)
+            t1 = time.perf_counter()
+            ms.append(1e3 * (t1 - t0))
+            done.append(b)
+            worsts.append(w)
+            cells += n_valid * st.labels.shape[0]
+        sweeps += 1
     st.window = {"seconds": t1 - t_start, "ms": ms, "blocks": done,
-                 "worsts": worsts, "attempted": len(done), "items": cells}
+                 "worsts": worsts, "attempted": len(done), "items": cells,
+                 "sweeps": sweeps}
 
 
 def traced_slice(st: State) -> int:
+    """The grid's first ``profile_blocks`` blocks."""
     k = st.mix["profile_blocks"]
-    for _ in range(k):
-        _block(st)
+    for _, block in itertools.islice(_sweep(st), k):
+        _block(st, block)
     return k
 
 
@@ -152,7 +171,7 @@ def release(st: State) -> None:
                 for j, b in ((j, w["blocks"][j]) for j in st.sampled)}
     st.answers = {"x_biases": st.x_biases,
                   "worsts": {j: w["worsts"][j] for j in st.sampled}}
-    st.cert = st.blocks = st.x_biases = None
+    st.cert = st.x_biases = None
     if st.device.type == "cuda":
         torch.cuda.empty_cache()
 
