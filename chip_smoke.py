@@ -41,9 +41,8 @@ and timing both:
     with one block's device time by stage and its peak memory, K4 (CROWN's
     bounds) and K5 (the interval QP), one launch each a chunk (k4.launches,
     k5.launches over the sweep), each against its plain path at one
-    chunk's rows, with its time, its bound and the plain path's time, and
-    the synthetic sweep of
-    fiode_tpu_torch/bench_certify.py (12); the Lipschitz / larger-T
+    chunk's rows, with its time, its bound and the plain path's time
+    (12); the Lipschitz / larger-T
     sweep and exact_witness on test images 0-15 through K1, held to
     lips_stream_full.jsonl.json and exact_witnesses.json, with blocks
     through K1 against the same blocks through rhs_reference (13);
@@ -147,20 +146,19 @@ eval-mode solve.
     output (19d); dryrun_multichip on two ranks of the card, gloo over its
     CUDA tensors (19e).  run_data/certified_full/ must be byte-equal after.
 
-  * phase 20: the two benchmark programs, ``python -m
-    fiode_tpu_torch.bench`` (the flagship's dopri5 solve at B = 32768, its
-    kernel path held to the plain path first) and ``python -m
-    fiode_tpu_torch.bench_certify`` (the synthetic CROWN sweep), in
-    subprocesses at their defaults with their launches counted: each one's
-    last stdout line is its record (keys, the JAX twin's metric, unit and
-    baseline, the card), printed here; the bench launches K1 and K3.
+Launches are read as deltas of the kernel wrappers' counters
+(fiode_tpu_torch/utils/tracing.py), k1.launches to k5.launches, under those
+names (``launched``).  The timings here are bring-up checks of each kernel
+against its plain version and its bound (the kernel table's yardstick:
+products at the 3xTF32 rate); the port's end-to-end speed is measured by
+the benchmark, ``python3 perfbench/run.py`` (cells in BENCHMARK.json).
 
 ``--phases certify`` runs phases 1, 2 and 11-14 only, for work on the
 certification path, ``--phases train`` phases 1, 2 and 15 (15f included), ``--phases
 control`` phases 1 and 16 (no build), ``--phases attack`` phases 1, 2 and
 10, ``--phases ode`` phases 1, 2 and 17, ``--phases cli`` phases 1, 2
-and 18, ``--phases drivers`` phases 1, 2 and 19, and ``--phases bench``
-phases 1, 2 and 20; none prints a result line.
+and 18, and ``--phases drivers`` phases 1, 2 and 19; none prints a result
+line.
 
 No phase catches its own failure.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -187,11 +185,7 @@ from unittest import mock
 import torch
 
 try:  # the package beside this script; nothing else of the repo is imported
-    from fiode_tpu_torch._bench_common import (card, conv_bound, counts, cuda_ms,
-                                               device_breakdown, is_device_op,
-                                               kernel_ms, plain_freq_apply,
-                                               plain_path, range_names,
-                                               reset_counts, rhs_bound)
+    from fiode_tpu_torch.utils.tracing import counters
 except ModuleNotFoundError as e:
     raise SystemExit(f"chip_smoke: no fiode_tpu_torch package beside {__file__} ({e})")
 
@@ -278,6 +272,228 @@ def log(msg: str) -> None:
 
 def gen(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
+
+
+# the kernel table's yardstick: the H100 SXM's published peaks (NVIDIA data
+# sheet, dense, 700 W): float32 outside the tensor cores, TF32 on the tensor
+# cores, HBM3; a kernel's bound is the larger of its bytes (each input read
+# once, each output written once) over the memory rate and its flops over
+# the peak rate of the unit that runs them: the products of K1 and K2 and
+# K3's mix run on the tensor cores in 3xTF32, three TF32 products per
+# float32 product; K1's and K2's bisection runs on float32 lanes.  The
+# benchmark's rooflines (perfbench/work.py) count the same bytes and flops
+# but take the products at the TF32 peak.
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
+
+
+def bound_ms(n_bytes: float, flops: float, rate: float = FP32_FLOPS) -> tuple:
+    """(least milliseconds, "bytes" or "operations") for flops at rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES, flops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def conv_bound(B, ci, co, n) -> tuple:
+    """Bound of one K3 apply: x and y once, Q once; the mix's 8 F co ci
+    flops per image at the 3xTF32 rate (a third of the TF32 peak); the
+    transforms' flops are not counted."""
+    F = n * (n // 2 + 1)
+    return bound_ms(4 * B * (ci + co) * n * n + 8 * F * co * ci,
+                    8 * B * F * co * ci, TF32_FLOPS / 3)
+
+
+def rhs_flops(n, m, qp_iters, backward=False, weight_grads=False) -> tuple:
+    """Flops per batch row of K1 (and of K2, which recomputes K1), as (the
+    products', the bisection's): three products forward; backward adds
+    d pre2, d pre1 and dh, and the weight gradients dW3, dW2 and dW1."""
+    products = 2 * n * m + 2 * m * m + 2 * m * n
+    if backward:
+        products *= 3 if weight_grads else 2
+    return products, 3 * n * qp_iters
+
+
+def rhs_bound(B, n, m, qp_iters, backward=False, weight_grads=False) -> tuple:
+    """Bound of one K1 or K2 launch: rows and weights once over the memory
+    rate; the products' flops at the 3xTF32 rate (a third of the TF32 peak)
+    plus the bisection's at the float32 rate."""
+    weights = 4 * (2 * m * n + m * m + m + n)
+    rows = 4 * B * ((n + m + n + n + m) if backward else (n + m + n))
+    products, bisection = rhs_flops(n, m, qp_iters, backward, weight_grads)
+    t_bytes = (rows + weights * (2 if weight_grads else 1)) / HBM_BYTES
+    t_ops = B * (products / (TF32_FLOPS / 3) + bisection / FP32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def crown_flops(n, m) -> int:
+    """Flops of CROWN's products per row of the n -> m -> m -> n ReLU MLP,
+    counted dense (K4 skips the neurons that add nothing): layer 1's
+    centre; layer 2's sign split collapsed into two products of each kind,
+    its forms and concretisation; layer 3's relaxation and bias einsums,
+    its forms times W2 and W1 and its concretisation."""
+    layer1 = 2 * n * m
+    layer2 = 2 * 2 * m * m + 2 * 2 * n * m * m + 2 * 2 * n * m
+    layer3 = (2 * 12 * n * m + 2 * 2 * n * m * m + 2 * 2 * n * n * m
+              + 2 * 2 * n * n)
+    return layer1 + layer2 + layer3
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device milliseconds per call of ``fn`` (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_us(e) -> float:
+    us = getattr(e, "device_time_total", None)
+    return getattr(e, "cuda_time_total", 0) if us is None else us
+
+
+def kernel_ms(fn, tags: tuple, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    names contain one of ``tags``, from torch.profiler: a launch shorter than
+    the host's work per call (~0.06 ms through the autograd wrapper) cannot
+    be timed between two events.  Falls back to ``cuda_ms`` if the profiler
+    saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if any(tag in e.key for tag in tags))
+    return us / 1e3 / iters if us > 0 else cuda_ms(fn, iters)
+
+
+def range_names(events) -> set:
+    """The names of the profiler ranges (the program's spans, the
+    optimizer's own) among a profiler's events.  Each range also shows on
+    the device's timeline, as an event of its name that is no device
+    operation and may lack the user-annotation flag."""
+    return {e.name for e in events
+            if not str(getattr(e, "device_type", "")).endswith("CUDA")
+            and getattr(e, "is_user_annotation", False)}
+
+
+def is_device_op(e, ranges: set) -> bool:
+    """Whether profiler event ``e`` is an operation of the device's own (a
+    kernel, copy or set), not a range's copy: ``ranges`` from
+    ``range_names``."""
+    return (str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in ranges)
+
+
+def device_breakdown(fn, top: int = 8, top_ops: int = 14) -> tuple:
+    """Run fn once under torch.profiler: (wall ms, device-busy ms, the top
+    kernels as (name, ms), the top operators as (name, input shapes, calls,
+    ms)).  The kernels are summed over the device's own kernel events only,
+    so that no time is counted twice through the ops that launched them; an
+    operator's time is that of the kernels it launched itself (not its
+    children's), grouped by operator and input shapes.  Kernels launched
+    outside any PyTorch operator (K1, K3) appear only among the kernels.
+    The device-side copies of profiler ranges are left out of
+    both."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    ranges = range_names(prof.events())
+    rows = [(e.key, _device_us(e) / 1e3) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.key not in ranges]
+    rows.sort(key=lambda r: -r[1])
+    ops = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                or e.key in ranges):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            ops.append((e.key, str(e.input_shapes), e.count, us / 1e3))
+    ops.sort(key=lambda r: -r[3])
+    return wall, sum(ms for _, ms in rows), rows[:top], ops[:top_ops]
+
+
+# the kernel wrappers' launch counters (fiode_tpu_torch/utils/tracing.py),
+# K1 to K5; K1_K3 those of the solve's kernels
+LAUNCHES = tuple(f"k{i}.launches" for i in range(1, 6))
+K1_K3 = LAUNCHES[:3]
+
+
+def launched(before: dict, names: tuple = LAUNCHES) -> dict:
+    """Each counter of ``names`` moved since ``before``, a ``counters()``
+    taken earlier: its launches in between, 0 for a kernel that did not
+    launch."""
+    now = counters()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in names}
+
+
+def plain_freq_apply(x, Qr, Qi):
+    """fused_freq_apply by its plain version (the dense DFT, no K3)."""
+    from fiode_tpu_torch.ops.cayley import apply_freq_matrices
+    return apply_freq_matrices(x, torch.complex(Qr, Qi), impl="dft")
+
+
+def plain_rhs_vjp(h, xc, g, p, *consts, weight_grads=True):
+    """fused_rhs_vjp by its plain version (no K2)."""
+    from fiode_tpu_torch.ops.fused_rhs import rhs_vjp_reference
+    dh, dxc, dp = rhs_vjp_reference(h, xc, g, p, *consts)
+    return dh, dxc, dp if weight_grads else None
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Run solves with K1 and K3 replaced by their plain versions; their
+    backward is then autograd through the plain versions (no K2), and the
+    adjoint's augmented RHS takes the plain versions of K1 and K2.  Raises
+    if K1, K2 or K3 launched inside."""
+    from fiode_tpu_torch.models import ivp, layers
+    from fiode_tpu_torch.ops.fused_rhs import rhs_reference
+    before = counters()
+    with mock.patch.object(ivp, "fused_rhs", rhs_reference), \
+            mock.patch.object(ivp, "fused_rhs_vjp", plain_rhs_vjp), \
+            mock.patch.object(layers, "fused_freq_apply", plain_freq_apply):
+        yield
+    if any(launched(before, K1_K3).values()):
+        raise RuntimeError("the plain path launched a kernel")
+
+
+def card() -> dict:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them for
+    device 0 (``line``; ``power_limit_w`` a number, or None if nvidia-smi
+    printed none), or ``torch.cuda.get_device_name(0)`` alone where
+    nvidia-smi is missing."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+    except FileNotFoundError:
+        name = torch.cuda.get_device_name(0)
+        return {"name": name, "power_limit_w": None, "line": name}
+    name, _, limit = out.rpartition(",")
+    try:
+        watts = float(limit.strip().split()[0])
+    except (IndexError, ValueError):  # "[N/A]" and the like
+        watts = None
+    return {"name": name.strip(), "power_limit_w": watts, "line": out}
 
 
 K1_KERNELS = ("fused_rhs_kernel",)
@@ -437,9 +653,9 @@ def k3_backward_phase(model, dev) -> dict:
             return lambda: torch.autograd.grad(apply(x, Qr, Qi), x, g)[0]
 
         kern = grads(K3_BWD_BATCH, 40 + i, fused_freq_apply)
-        before = counts()["fused_freq_apply"]
+        since = counters()
         dx = kern()
-        if counts()["fused_freq_apply"] != before + 2:
+        if launched(since)["k3.launches"] != 2:
             raise RuntimeError("K3 backward did not launch K3 on Q^H")
         want = grads(K3_BWD_BATCH, 40 + i, plain_freq_apply)()
         torch.cuda.synchronize()
@@ -488,14 +704,14 @@ def plain_backwards():
     K3 instead of K2 and K3 on Q^H."""
     from fiode_tpu_torch.ops.fused_cayley_conv import _FusedFreqApplyCuda
     from fiode_tpu_torch.ops.fused_rhs import _FusedRhsCuda
-    before = counts()
+    before = counters()
     with mock.patch.object(_FusedRhsCuda, "backward",
                            staticmethod(plain_backward)), \
             mock.patch.object(_FusedFreqApplyCuda, "backward",
                               staticmethod(plain_conv_backward)):
         yield
     torch.cuda.synchronize()
-    if counts() != before:
+    if any(launched(before, K1_K3).values()):
         raise RuntimeError("the plain backward launched a kernel")
 
 
@@ -529,19 +745,20 @@ def grad_solve_phase(model, dev) -> dict:
         y = model.predict(x).argmax(-1)
 
     def loss_and_grad(retain=False):
+        since = counters()
         xg = x.clone().requires_grad_()
         sol = model.solve(xg)
         loss = ce_loss(sol.ys[-1], y).mean()
-        fwd = counts()
+        fwd = launched(since, K1_K3)
         (dx,) = torch.autograd.grad(loss, xg, retain_graph=retain)
         torch.cuda.synchronize()
         return sol, (xg, loss), dx, fwd
 
     branches_k, branches_p = [], []
-    reset_counts()
+    since = counters()
     with groupsort_branches(model, branches_k):
         sol_k, (xg, loss_k), dx_k, fwd = loss_and_grad(retain=True)
-    launches = counts()
+    launches = launched(since, K1_K3)
     with plain_path(), groupsort_branches(model, branches_p):
         sol_p, (_, loss_p), dx_p, _ = loss_and_grad()
     flipped = torch.zeros(GRAD_BATCH, dtype=torch.bool, device=dev)
@@ -578,9 +795,9 @@ def grad_solve_phase(model, dev) -> dict:
         raise RuntimeError(f"NFE differs: kernel {sol_k.nfe} plain {sol_p.nfe}")
     if sol_k.attempts >= model.max_steps:
         raise RuntimeError("the solve used its whole step budget")
-    want = {"fused_rhs": sol_k.nfe, "fused_rhs_backward": sol_k.nfe,
-            "fused_freq_apply": 2 * len(CONV_SHAPES)}
-    if launches != want or fwd["fused_freq_apply"] != len(CONV_SHAPES):
+    want = {"k1.launches": sol_k.nfe, "k2.launches": sol_k.nfe,
+            "k3.launches": 2 * len(CONV_SHAPES)}
+    if launches != want or fwd["k3.launches"] != len(CONV_SHAPES):
         raise RuntimeError(f"launches {launches} (forward {fwd}), want {want}")
 
     ms = {"kernel": [], "plain": []}
@@ -606,18 +823,18 @@ def flagship_grad_phase(model, dev) -> dict:
     with torch.no_grad():
         y = model.predict(x).argmax(-1)
     xg = x.clone().requires_grad_()
-    reset_counts()
+    since = counters()
     sol = model.solve(xg)
     loss = ce_loss(sol.ys[-1], y).mean()
-    fwd = counts()
+    fwd = launched(since)
     (dx_k,) = torch.autograd.grad(loss, xg, retain_graph=True)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launched(since)
     with plain_backwards():
         (dx_p,) = torch.autograd.grad(loss, xg)
     scale = dx_p.abs().max().item()
     d_shared = ((dx_k - dx_p).abs().max() / scale).item()
-    k2 = launches["fused_rhs_backward"]
+    k2 = launches["k2.launches"]
     log(f"[9 flagship grad] B={GRAD_BATCH} t_max={model.t_max} scale_nominal="
         f"{model.dynamics.scale_nominal}: loss {loss.item():.6f} nfe {sol.nfe} "
         f"accepted {sol.n_accepted} rejected {sol.n_rejected} | K2 launches "
@@ -633,7 +850,7 @@ def flagship_grad_phase(model, dev) -> dict:
     # every evaluation is differentiated unless a rejected step's are not
     if not (k2 == sol.nfe if sol.n_rejected == 0 else 0 < k2 <= sol.nfe):
         raise RuntimeError(f"K2 launched {k2} times for NFE {sol.nfe}")
-    if launches["fused_freq_apply"] != 2 * len(CONV_SHAPES):
+    if launches["k3.launches"] != 2 * len(CONV_SHAPES):
         raise RuntimeError(f"K3 launches {launches}")
     return {"launches": launches}
 
@@ -664,12 +881,12 @@ def attack_phase(dev, n_iter=ATTACK_ITERS,
                              device=dev)
     artifact = json.loads((CERT_DIR / "autoattack_full_standard_512_tmax01.json")
                           .read_text())
-    reset_counts()
+    since = counters()
     summary, x_adv = run_autoattack(
         model, x, y, eps=ATTACK_EPS, norm="L2", n_iter=n_iter,
         square_queries=square_queries, batch_size=ATTACK_IMAGES, seed=SEED)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launched(since, K1_K3)
     robust = torch.zeros(ATTACK_IMAGES, dtype=torch.bool, device=dev)
     robust[summary["robust_idx"]] = True
     dist = torch.linalg.norm((x_adv - x).reshape(ATTACK_IMAGES, -1), dim=-1)
@@ -802,10 +1019,7 @@ def k4_ptxas() -> tuple:
 
 def crown_phase(model, grid, x, y, dev) -> dict:
     """[12 CROWN] the sweep on CROWN_IMAGES against the artifact's certified
-    set; one block by stage; bench_certify.py's synthetic sweep."""
-    from fiode_tpu_torch._bench_common import FP32_FLOPS, HBM_BYTES, TF32_FLOPS
-    from fiode_tpu_torch.bench_certify import flops_per_cell
-    from fiode_tpu_torch.utils.tracing import counters
+    set; one block by stage."""
     from fiode_tpu_torch.verify.certify import (SUPERCHUNK, Certifier,
                                                 float32_matmuls)
     from fiode_tpu_torch.ops.fused_crown import PASS, layer3_columns
@@ -836,14 +1050,11 @@ def crown_phase(model, grid, x, y, dev) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    k4_before = counters().get("k4.launches", 0)
-    k5_before = counters().get("k5.launches", 0)
+    since = counters()
     with mock.patch.object(cert, "crown_block", spy):
         res = cert.certify(xs, ys, method="crown")
-    launches = counts()
-    k4 = counters().get("k4.launches", 0) - k4_before
-    k5 = counters().get("k5.launches", 0) - k5_before
+    launches = launched(since)
+    k4, k5 = launches["k4.launches"], launches["k5.launches"]
     restored = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -867,7 +1078,7 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         raise RuntimeError(f"CROWN certified {got}, the artifact {expect}")
     if res.cells_checked != len(idx) * CERT_CELLS:
         raise RuntimeError("the CROWN sweep did not cover the grid")
-    if launches["fused_rhs"] == 0 or launches["fused_freq_apply"] != 2 * len(CONV_SHAPES):
+    if launches["k1.launches"] == 0 or launches["k3.launches"] != 2 * len(CONV_SHAPES):
         raise RuntimeError(f"the clean check's launches: {launches}")
     # K4: one launch a chunk, every chunk of the blocks (the last padded)
     chunks = -(-CERT_CELLS // CERT_CHUNK)
@@ -895,15 +1106,15 @@ def crown_phase(model, grid, x, y, dev) -> dict:
         def chunk():
             return cert.crown_block(x_biases, ys, perms, eta[None], valid, worst0)
 
-        k4_before = counters().get("k4.launches", 0)
+        since = counters()
         t_k4 = cuda_ms(lambda: crown_mlp_bounds(
             cert.Ws, cert.bs, eta_l, cert.eps, x_rows), 3, 1)
-        k4_timed = counters().get("k4.launches", 0) - k4_before
+        k4_timed = launched(since)["k4.launches"]
         h_lb, h_ub = eta_l - cert.eps, eta_l + cert.eps
-        k5_before = counters().get("k5.launches", 0)
+        since = counters()
         t_k5 = cuda_ms(lambda: ibp_cbf_qp(
             eta_l, cert.eps, lb, ub, a1, s1, a2), 3, 1)
-        k5_timed = counters().get("k5.launches", 0) - k5_before
+        k5_timed = launched(since)["k5.launches"]
         t = {"crown": t_k4,
              "crown_plain": cuda_ms(lambda: crown_bounds_reference(
                  cert.Ws, cert.bs, eta_l, cert.eps, x_rows), 3, 1),
@@ -949,7 +1160,7 @@ def crown_phase(model, grid, x, y, dev) -> dict:
     # K4's bound: CROWN's products counted dense, at the 3xTF32 rate (a
     # third of the TF32 peak) and on the fp32 cores; K4 skips the neurons
     # that add nothing, so it may beat the dense fp32 figure
-    dense = rows * flops_per_cell(N_CLASSES, MLP)["products"]
+    dense = rows * crown_flops(N_CLASSES, MLP)
     b3, b32 = 1e3 * dense / (TF32_FLOPS / 3), 1e3 * dense / FP32_FLOPS
     log(f"[12 K4] CROWN's bounds of one chunk ({rows} rows): K4 "
         f"{t['crown']:.3f} ms, {k4_timed} launches for its 4 calls (3 timed, "
@@ -1005,16 +1216,6 @@ def crown_phase(model, grid, x, y, dev) -> dict:
     for name, shapes, calls, ms in top_ops:
         log(f"[12 device_breakdown]   op {ms:7.2f} ms  {calls:4d} x {name} {shapes[:100]}")
 
-    # the synthetic sweep of python -m fiode_tpu_torch.bench_certify (its
-    # inputs, sweep and timing: a warm-up, then three calls each ended by a
-    # host read, non-finite worst values raising; phase 20 runs the program)
-    from fiode_tpu_torch import bench_certify
-    inp = bench_certify.inputs(SEED, dev)
-    I, C = inp["x_biases"].shape[0], inp["eta"].shape[0]
-    best = min(bench_certify.measure(inp)["call_ms"])
-    log(f"[12 bench_certify] synthetic sweep, {I} images x {C} cells x "
-        f"{bench_certify.N_INNER}, random weights, float32: {best:.1f} ms, "
-        f"{bench_certify.N_INNER * C * I / best * 1e3:,.0f} image-cells/s")
     return {"launches": launches, "rate": rate,
             "k4": {"launches": k4, "ms": t["crown"], "plain_ms": t["crown_plain"],
                    "bound_ms": b3, "bound_fp32_ms": b32, "max_rel_err": k4_err,
@@ -1040,9 +1241,9 @@ def lipschitz_phase(model, grid, x, y, dev) -> dict:
     n_chunks = -(-CERT_CELLS // CERT_CHUNK)
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    since = counters()
     res = cert.certify(xs, ys, method="lipschitz")
-    launches = counts()
+    launches = launched(since)
     peak = torch.cuda.max_memory_allocated() / 2**30
     rate = res.cells_checked / res.seconds
     held_by_margin = []
@@ -1068,8 +1269,8 @@ def lipschitz_phase(model, grid, x, y, dev) -> dict:
         f"(|worst| <= {CERT_MARGIN:g}): {held_by_margin}")
     if not res.clean.all() or res.cells_checked != len(idx) * CERT_CELLS:
         raise RuntimeError("the Lipschitz sweep did not cover the grid")
-    if not sweep_chunks < launches["fused_rhs"] <= sweep_chunks + 6 * CERT_MAX_STEPS + 2:
-        raise RuntimeError(f"K1 launched {launches['fused_rhs']} times for "
+    if not sweep_chunks < launches["k1.launches"] <= sweep_chunks + 6 * CERT_MAX_STEPS + 2:
+        raise RuntimeError(f"K1 launched {launches['k1.launches']} times for "
                            f"{sweep_chunks} chunks")
 
     # blocks through K1 and through rhs_reference: the first and the last
@@ -1083,14 +1284,14 @@ def lipschitz_phase(model, grid, x, y, dev) -> dict:
         for which in (0, len(blocks) - 1):
             etas, valids, n_valid = blocks[which]
             start = torch.full((len(idx),), float("-inf"), device=dev)
-            before = counts()["fused_rhs"]
+            since = counters()
             wk = cert.lips_block(p, xc_rows, ys, perms, etas, valids,
                                  (start, start.clone()))
-            k1 = counts()["fused_rhs"] - before
+            k1 = launched(since)["k1.launches"]
             with mock.patch.object(certify_module, "fused_rhs", rhs_reference):
                 wp = cert.lips_block(p, xc_rows, ys, perms, etas, valids,
                                      (start, start.clone()))
-            if counts()["fused_rhs"] - before != k1 or k1 != etas.shape[0]:
+            if launched(since)["k1.launches"] != k1 or k1 != etas.shape[0]:
                 raise RuntimeError(f"K1 launches of one block: {k1}")
             err = max((a - b).abs().max().item() for a, b in zip(wk, wp))
             block_err = max(block_err, err)
@@ -1129,11 +1330,11 @@ def lipschitz_phase(model, grid, x, y, dev) -> dict:
         raise RuntimeError(f"K1 at a certification block's rows disagrees: {k1_err}")
 
     # exact_witness: the larger-T quantity with its argmax
-    reset_counts()
+    since = counters()
     t0 = time.perf_counter()
     vals, cells, clean = cert.exact_witness(xs, ys)
     wit_s = time.perf_counter() - t0
-    wit_launches = counts()
+    wit_launches = launched(since)
     d_wit = float(abs(vals - res.worst_larger_T).max())
     log(f"[13 witness] exact_witness on images {idx[0]}-{idx[-1]} in {wit_s:.1f} s: "
         f"max|witness - larger-T worst|={d_wit:.3e} | launches {wit_launches}")
@@ -1153,8 +1354,8 @@ def lipschitz_phase(model, grid, x, y, dev) -> dict:
                 f"{w['witness_cell_idx']}, {w['verdict']})")
             if verdict != w["verdict"] or int(cells[i]) != w["witness_cell_idx"]:
                 raise RuntimeError(f"witness of image {w['image']} differs")
-    if wit_launches["fused_rhs"] <= sweep_chunks:
-        raise RuntimeError(f"exact_witness launched K1 {wit_launches['fused_rhs']} times")
+    if wit_launches["k1.launches"] <= sweep_chunks:
+        raise RuntimeError(f"exact_witness launched K1 {wit_launches['k1.launches']} times")
     return {"launches": launches, "rate": rate, "k1_block_err": max(block_err, k1_err),
             "res": res}
 
@@ -1170,7 +1371,6 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
     checkpoint at the committed passes' budgets, against their artifacts;
     one BaB round's device breakdown."""
     import numpy as np
-    from fiode_tpu_torch.utils.tracing import counters
     from fiode_tpu_torch.verify import refine as refine_module
     from fiode_tpu_torch.verify import refine_lips as refine_lips_module
     from fiode_tpu_torch.verify import refine_lips_uncertified, refine_uncertified
@@ -1208,25 +1408,22 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
             out.append((idx[s.image], s, bab))
         return new_cert, out, seconds
 
-    reset_counts()
+    since = counters()
     # 14a: plain CROWN BaB; the clean check runs inside (clean not given)
     artifact = {}
     for line in (CERT_DIR / "refine_full_pass5_stream.jsonl").read_text().splitlines():
         rec = json.loads(line)
         if rec["image"] in REFINE_IMAGES:
             artifact[rec["image"]] = rec
-    k4_before = counters().get("k4.launches", 0)
-    k5_before = counters().get("k5.launches", 0)
     _, crown_stats, crown_s = run(
         refine_uncertified, REFINE_IMAGES,
         certified=np.zeros(len(REFINE_IMAGES), bool), chunk=CERT_CHUNK,
         **REFINE_BUDGETS)
-    launches_a = counts()
+    launches_a = launched(since)
     # K4 and K5 bound each image's sweep, a launch each a call; the BaB steps
     # take the plain chains (their split dims are a gradient in the
     # half-widths, through CROWN and the QP)
-    k4_a = counters().get("k4.launches", 0) - k4_before
-    k5_a = counters().get("k5.launches", 0) - k5_before
+    k4_a, k5_a = launches_a["k4.launches"], launches_a["k5.launches"]
     for i, s, bab in crown_stats:
         w, (f_viol, f_rounds, f_boxes) = artifact[i], REFINE_F32[i]
         bab_s = bab["seconds"] if bab else 0.0
@@ -1246,8 +1443,8 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
         if s.rounds != f_rounds:
             raise RuntimeError(f"image {i}: {s.rounds} rounds, float32 {f_rounds}")
     log(f"[14a crown BaB] images {list(REFINE_IMAGES)}: {crown_s:.1f} s with the "
-        f"clean check and feature pass | launches {launches_a}, k4.launches {k4_a} "
-        f"({k4_a / len(REFINE_IMAGES):.0f} an image), k5.launches {k5_a}")
+        f"clean check and feature pass | launches {launches_a} ("
+        f"{k4_a / len(REFINE_IMAGES):.0f} K4 an image)")
     if k5_a != k4_a:
         raise RuntimeError(f"K5 launched {k5_a} times for K4's {k4_a} sweep calls")
 
@@ -1271,11 +1468,11 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
         + "; ".join(f"{name[:50]} {ms:.2f} ms" for name, ms in top))
 
     # 14b: the hybrid bound, K1 at every cell and box centre
-    reset_counts()
+    since = counters()
     _, hyb_stats, hyb_s = run(refine_uncertified, (HYBRID_IMAGE,),
                               certified=np.zeros(1, bool), clean=np.ones(1, bool),
                               chunk=CERT_CHUNK, **dict(REFINE_BUDGETS, lips_box=True))
-    launches_b = counts()
+    launches_b = launched(since)
     (_, s, bab), = hyb_stats
     bab_s = bab["seconds"] if bab else 0.0
     log(f"[14b hybrid BaB] image {HYBRID_IMAGE}: violated {s.base_violated} "
@@ -1288,12 +1485,12 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
         f"{sweep_blocks} sweep blocks + one a BaB round's block)")
     if not s.certified or abs(s.base_violated - HYBRID_F32[0]) > 2:
         raise RuntimeError(f"hybrid BaB on image {HYBRID_IMAGE}: {s}")
-    if not launches_b["fused_rhs"] > sweep_blocks:
-        raise RuntimeError(f"K1 ran on no BaB box: {launches_b['fused_rhs']} launches "
+    if not launches_b["k1.launches"] > sweep_blocks:
+        raise RuntimeError(f"K1 ran on no BaB box: {launches_b['k1.launches']} launches "
                            f"for {sweep_blocks} sweep blocks")
 
     # 14c: the Lipschitz BaB, with phase 13's verdicts
-    reset_counts()
+    since = counters()
     lips_stats = []
     lips_s = 0.0
     for i in LIPS_REFINE_IMAGES:
@@ -1306,7 +1503,7 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
             chunk=CERT_CHUNK, max_rounds=rounds, **LIPS_REFINE_BUDGETS)
         lips_stats += stats
         lips_s += secs
-    launches_c = counts()
+    launches_c = launched(since)
     for i, s, bab in lips_stats:
         bab_s = bab["seconds"] if bab else 0.0
         log(f"[14c lipschitz BaB] image {i}: violated {s.base_violated} | rounds "
@@ -1329,8 +1526,7 @@ def refine_phase(model, grid, x, y, dev, lips_res) -> dict:
     seconds = time.perf_counter() - t_phase
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
     log(f"[14 refine] phase 14 in {seconds:.1f} s | launches {launches}")
-    return {"launches": launches, "seconds": seconds, "k4_launches": k4_a,
-            "k5_launches": k5_a}
+    return {"launches": launches, "seconds": seconds, "crown_bab": launches_a}
 
 
 def certify_phases(dev) -> dict:
@@ -1502,13 +1698,13 @@ def train_phase(dev) -> dict:
         f"| cut: {TRAIN_EPOCHS} of {m['max_epochs']} epochs, synthetic data")
 
     # (a) run_train at full width
-    reset_counts()
+    since = counters()
     t0 = time.perf_counter()
     tr, test = run_train(cfg, run_dir=str(TRAIN_DIR / "a"), epochs=TRAIN_EPOCHS,
                          device=dev)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = counts()
+    launches = launched(since)
     final = _params(tr.model)
     losses = torch.stack(tr.losses).cpu()
     steps = losses.numel()
@@ -1529,9 +1725,9 @@ def train_phase(dev) -> dict:
         raise RuntimeError("a training or validation loss is not finite")
     if not last < first:
         raise RuntimeError(f"the training loss did not fall: {first} -> {last}")
-    if launches["fused_freq_apply"] != TRAIN_K3_PER_STEP * steps + 4 * n_eval:
+    if launches["k3.launches"] != TRAIN_K3_PER_STEP * steps + 4 * n_eval:
         raise RuntimeError(f"K3 launches {launches}")
-    if launches["fused_rhs"] == 0 or launches["fused_rhs_backward"] != 0:
+    if launches["k1.launches"] == 0 or launches["k2.launches"] != 0:
         raise RuntimeError(f"K1 / K2 launches {launches}")
     phase_launches = dict(launches)
 
@@ -1542,10 +1738,10 @@ def train_phase(dev) -> dict:
     sn = tr._phase_scale_nominal
     lr = tr._lr(tr.opt_count)
     snap = _snapshot(tr)
-    reset_counts()
+    since = counters()
     loss_k, _ = tr._train_step(x, y, steps, mixer, 0.0, sn)
     torch.cuda.synchronize()
-    step_launches = counts()
+    step_launches = launched(since, K1_K3)
     grads_k, params_k = _grads(tr.model), _params(tr.model)
     _restore(tr, snap)
     with plain_path():
@@ -1558,8 +1754,8 @@ def train_phase(dev) -> dict:
         f"({g_name}; tol {TRAIN_GRAD_TOL:g}) | max |d param| {p_err:.3e} "
         f"(tol {TRAIN_PARAM_TOL:g} x lr {lr:.3e}) | launches per step "
         f"{step_launches}")
-    if step_launches != {"fused_rhs": 0, "fused_rhs_backward": 0,
-                         "fused_freq_apply": TRAIN_K3_PER_STEP}:
+    if step_launches != {"k1.launches": 0, "k2.launches": 0,
+                         "k3.launches": TRAIN_K3_PER_STEP}:
         raise RuntimeError(f"a Lyapunov step launched {step_launches}")
     if not (abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
             and g_err <= TRAIN_GRAD_TOL and p_err <= TRAIN_PARAM_TOL * lr):
@@ -1606,20 +1802,20 @@ def train_phase(dev) -> dict:
     otr.reset_optimizer(False)
     ox, oy = otr._train_x[:B], otr._train_y[:B]
     osn = otr._phase_scale_nominal
-    reset_counts()
+    since = counters()
     loss = otr._ode_ce_loss(ox, oy, osn)
-    fwd = counts()
+    fwd = launched(since)
     otr.model.zero_grad(set_to_none=True)
     loss.backward(retain_graph=True)
     torch.cuda.synchronize()
-    ode_launches = counts()
+    ode_launches = launched(since)
     g_kernel = _grads(otr.model)
     otr.model.zero_grad(set_to_none=True)
     with plain_backwards():
         loss.backward()
     g_plain = _grads(otr.model)
     og_err, og_name = _max_rel(g_kernel, g_plain)
-    k1, k2 = fwd["fused_rhs"], ode_launches["fused_rhs_backward"]
+    k1, k2 = fwd["k1.launches"], ode_launches["k2.launches"]
     snap = _snapshot(otr)
     runs, osecs = [], []
     for _ in range(2):
@@ -1638,13 +1834,13 @@ def train_phase(dev) -> dict:
         f"two runs of 2 steps bit-identical: {bit} | ode step "
         f"{1e3 * min(osecs):.1f} ms best of {len(osecs)} (host clock)")
     if not (k1 > 0 and 0 < k2 <= k1
-            and ode_launches["fused_freq_apply"] == TRAIN_K3_PER_STEP):
+            and ode_launches["k3.launches"] == TRAIN_K3_PER_STEP):
         raise RuntimeError(f"ode step launches {ode_launches} (forward {fwd})")
     if not og_err <= GRAD_DX_TOL:
         raise RuntimeError(f"the ode step's kernel backward disagrees: {og_err}")
     if not bit:
         raise RuntimeError("two identical ode steps gave different weights")
-    phase_launches["fused_rhs_backward"] += k2
+    phase_launches["k2.launches"] += k2
 
     # (d) resume from epoch 1 of the same configuration
     run_train(cfg, run_dir=str(TRAIN_DIR / "d"), epochs=1, device=dev)
@@ -1674,13 +1870,13 @@ def train_phase(dev) -> dict:
     # trainer's other modes, is train_modes_phase)
     mcfg = compose("mnist_train.yaml", [nodata, f"++synthetic_size={TRAIN_MNIST_SIZE}"],
                    config_dir=cdir)
-    reset_counts()
+    since = counters()
     t0 = time.perf_counter()
     mtr, mtest = run_train(mcfg, run_dir=str(TRAIN_DIR / "mnist"), epochs=1,
                            device=dev)
     torch.cuda.synchronize()
     m_s = time.perf_counter() - t0
-    mlaunch = counts()
+    mlaunch = launched(since)
     msteps = mtr.losses[0].numel()
     m_eval = -(-len(mtr.ds.val_x) // mtr.cfg.val_batch_size) \
         + -(-len(mtr.ds.test_x) // mtr.cfg.val_batch_size)
@@ -1691,7 +1887,7 @@ def train_phase(dev) -> dict:
         f"1 of 200 epochs, {len(mtr.ds.train_x)} synthetic train images")
     if not torch.isfinite(mtr.losses[0]).all():
         raise RuntimeError("an MNIST training loss is not finite")
-    if mlaunch["fused_freq_apply"] != TRAIN_K3_PER_STEP * msteps + 4 * m_eval:
+    if mlaunch["k3.launches"] != TRAIN_K3_PER_STEP * msteps + 4 * m_eval:
         raise RuntimeError(f"MNIST K3 launches {mlaunch}")
     for k in phase_launches:
         phase_launches[k] += mlaunch[k]
@@ -1758,7 +1954,7 @@ def train_modes_phase(dev) -> dict:
     shutil.rmtree(mdir, ignore_errors=True)
     nodata = f"++data_root={TRAIN_DIR / 'no-data'}"
     cdir = str(ROOT / "configs" / "classification")
-    phase_launches = dict.fromkeys(counts(), 0)
+    phase_launches = dict.fromkeys(LAUNCHES, 0)
 
     def add(launches):
         for k in phase_launches:
@@ -1786,13 +1982,13 @@ def train_modes_phase(dev) -> dict:
 
         steps = []
         for i in range(MODE_STEPS):
-            reset_counts()
+            since = counters()
             with mock.patch.object(trainer_module, "pgd_attack",
                                    recorded if i == 0 else pgd_attack):
                 loss, m = tr._train_step(x, y, i, mixer, portion, sn)
             torch.cuda.synchronize()
             if i == 0:
-                launches, loss_k = counts(), loss.item()
+                launches, loss_k = launched(since), loss.item()
             steps.append((loss.item(), float(m["Lips"]), float(m["kappa"])))
         add(launches)
         if not all(math.isfinite(v) for step in steps for v in step):
@@ -1837,10 +2033,10 @@ def train_modes_phase(dev) -> dict:
         ok = abs(loss_k - loss_p) <= loss_tol * abs(loss_p) and g_err <= g_tol
         # launches per step, derived from the code (mode_k3_per_step)
         solves = cfg.train_ode
-        if not (launches["fused_freq_apply"] == want_k3
-                and (0 < launches["fused_rhs_backward"] <= launches["fused_rhs"]
-                     if solves else launches["fused_rhs"] == 0
-                     and launches["fused_rhs_backward"] == 0)):
+        if not (launches["k3.launches"] == want_k3
+                and (0 < launches["k2.launches"] <= launches["k1.launches"]
+                     if solves else launches["k1.launches"] == 0
+                     and launches["k2.launches"] == 0)):
             raise RuntimeError(f"{name}: launches per step {launches}, want K3 "
                                f"{want_k3} and K1 / K2 {'> 0' if solves else '0'}")
         _restore(tr, snap)
@@ -1895,21 +2091,21 @@ def train_modes_phase(dev) -> dict:
     load_npz(tr.model, trained)
     tr.cfg = dataclasses.replace(tr.cfg, val_adv=True)
     want_k3 = len(CONV_SHAPES) * (2 + 2 * PGD_VAL_ITERS)
-    reset_counts()
+    since = counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     val = tr.evaluate(max_batches=1)
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t0
-    launches = counts()
+    launches = launched(since)
     add(launches)
     n_val = min(len(tr.ds.val_x), tr.cfg.val_batch_size)
     log(f"[15f val_adv] evaluate on {n_val} validation images ({trained}): error "
         f"{val['validation_error']:.4f}, adversarial {val['validation_adv_error']:.4f} "
         f"| {val_s:.2f} s | launches {launches} (K3 want {want_k3}: the clean "
         f"and adversarial solves and {PGD_VAL_ITERS} PGD forwards and backwards)")
-    if not (launches["fused_freq_apply"] == want_k3 and launches["fused_rhs"] > 0
-            and launches["fused_rhs_backward"] > 0):
+    if not (launches["k3.launches"] == want_k3 and launches["k1.launches"] > 0
+            and launches["k2.launches"] > 0):
         raise RuntimeError(f"val_adv launches {launches}")
     if not (math.isfinite(val["validation_loss"])
             and val["validation_adv_error"] >= val["validation_error"]):
@@ -1919,12 +2115,12 @@ def train_modes_phase(dev) -> dict:
     rcfg = compose("cifar_train.yaml", [
         nodata, f"++synthetic_size={MODES_RUN_SIZE}", "++module.adv_train=true",
         "++module.val_adv=true", "++module.lips_train=true"], config_dir=cdir)
-    reset_counts()
+    since = counters()
     t0 = time.perf_counter()
     rtr, test = run_train(rcfg, run_dir=str(mdir / "run"), epochs=1, device=dev)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = counts()
+    launches = launched(since)
     add(launches)
     losses = rtr.losses[0]
     best = _json.loads((rtr.ckpt.dir / "best.json").read_text())
@@ -1945,7 +2141,7 @@ def train_modes_phase(dev) -> dict:
             and rtr.ckpt.path("best").exists()):
         raise RuntimeError(f"the best checkpoint does not follow "
                            f"validation_adv_error: {best}")
-    if launches["fused_freq_apply"] != want_k3:
+    if launches["k3.launches"] != want_k3:
         raise RuntimeError(f"run_train with the modes launched {launches}")
     seconds = time.perf_counter() - t_phase
     log(f"[15f modes] phase 15f in {seconds:.1f} s | launches {phase_launches}")
@@ -2022,7 +2218,7 @@ def segway_phase(dev, smi: str) -> dict:
     t_phase = time.perf_counter()
     ref = json.loads((SEGWAY_DIR / "segway_f32.json").read_text())
     sizes = (float(math.pi / 12), 1.5, 1.5)
-    reset_counts()
+    since = counters()
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2162,7 +2358,7 @@ def segway_phase(dev, smi: str) -> dict:
         f"top {[(k, round(ms, 3), c) for k, ms, c in prof['top']]} | {smi}")
     log(f"[16c times] simulate: {sim_s:.3f} s, {sol.n_accepted + sol.n_rejected} steps, "
         f"NFE {sol.nfe} | {smi}")
-    launches = counts()
+    launches = launched(since, K1_K3)
     if any(launches.values()):
         raise RuntimeError(f"a TPU kernel's port was launched on the Segway path: {launches}")
     log(f"[16 control] phase 16 in {time.perf_counter() - t_phase:.1f} s | launches "
@@ -2184,11 +2380,6 @@ LEGACY_SHAPE, LEGACY_FEATURES, LEGACY_T, LEGACY_TOL = (512, 3, 32, 32), 32, 0.5,
 # names of the Cayley transform's solve (torch.linalg.solve: LU factor and
 # triangular solves) among the profiler's events
 CAYLEY_SOLVE = ("linalg", "lu_factor", "getrf", "getrs", "trsm", "lu_solve")
-
-
-def _delta(before: dict) -> dict:
-    after = counts()
-    return {k: after[k] - before[k] for k in after}
 
 
 def _add(total: dict, part: dict) -> None:
@@ -2224,13 +2415,13 @@ def solver_phase(model, dev) -> dict:
             ctx = plain_path() if which == "plain" else contextlib.nullcontext()
             with torch.no_grad(), ctx, \
                     mock.patch.object(integrate, "rms_error_ratio", spy):
-                before = counts()
+                since = counters()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 sol = model.solve(x, **kw)
                 torch.cuda.synchronize()
                 ms = 1e3 * (time.perf_counter() - t0)
-                used = _delta(before)
+                used = launched(since)
             if which in res:  # the repeat: its time only
                 ms = min(ms, res[which][1])
             res[which] = (sol, ms, [r.item() for r in ratios], used)
@@ -2256,7 +2447,7 @@ def solver_phase(model, dev) -> dict:
                 abs(r - 1.0) <= RATIO_ROUNDING for r in (rk[split], rp[split]))):
             raise RuntimeError(f"{method}: the step counts differ beyond the "
                                "rounding of the error ratio")
-        if used["fused_rhs"] != sk.nfe or used["fused_freq_apply"] != len(CONV_SHAPES):
+        if used["k1.launches"] != sk.nfe or used["k3.launches"] != len(CONV_SHAPES):
             raise RuntimeError(f"{method}: launches {used} for NFE {sk.nfe}")
     return {"launches": launches}
 
@@ -2311,11 +2502,11 @@ def adjoint_phase(flagship_model, dev) -> dict:
             ctx = plain_path() if which == "plain" else contextlib.nullcontext()
             with ctx, groupsort_branches(model, branches), \
                     mock.patch.object(adjoint_module, "odeint", spy):
-                before = counts()
+                since = counters()
                 t0 = time.perf_counter()
                 sol, dx = grad(True, stats)
                 ms = 1e3 * (time.perf_counter() - t0)
-                used = _delta(before)
+                used = launched(since, K1_K3)
             n = model.dynamics.n_hidden
             # the backward solve's y at t = 0 against h0, the simplex centre
             y0_err = (ends[-1][:ADJ_BATCH * n] - 1.0 / n).abs().max().item()
@@ -2354,8 +2545,8 @@ def adjoint_phase(flagship_model, dev) -> dict:
             raise RuntimeError(f"{name}: {n_flipped} images took another GroupSort branch")
         if max(sk.attempts, back_attempts) >= model.max_steps:
             raise RuntimeError(f"{name}: a solve used its whole step budget")
-        want = {"fused_rhs": sk.nfe + nb, "fused_rhs_backward": nb,
-                "fused_freq_apply": 2 * len(CONV_SHAPES)}
+        want = {"k1.launches": sk.nfe + nb, "k2.launches": nb,
+                "k3.launches": 2 * len(CONV_SHAPES)}
         if used != want:
             raise RuntimeError(f"{name}: launches {used}, want {want}")
     return {"launches": launches}
@@ -2395,12 +2586,12 @@ def cached_phase(dev) -> dict:
     cache_cayley_params(twin, model)
     x = torch.rand(TIME_BATCH, 3, 32, 32, generator=gen(81)).to(dev)
     with torch.no_grad():
-        before = counts()
+        since = counters()
         sol_u = model.solve(x)
-        used_u = _delta(before)
-        before = counts()
+        used_u = launched(since)
+        since = counters()
         sol_c = twin.solve(x)
-        used = _delta(before)
+        used = launched(since)
         err = (model.output_fn(sol_c.ys[-1])
                - model.output_fn(sol_u.ys[-1])).abs().max().item()
         busy_u, _ = profile_solve(lambda: model.solve(x))
@@ -2426,9 +2617,9 @@ def cached_phase(dev) -> dict:
             and sol_c.nfe == sol_u.nfe):
         raise RuntimeError(f"the cached twin disagrees: {err}, nfe {sol_c.nfe} "
                            f"vs {sol_u.nfe}")
-    if used["fused_freq_apply"] != len(CONV_SHAPES):
+    if used["k3.launches"] != len(CONV_SHAPES):
         raise RuntimeError(f"the cached twin's forward launched K3 "
-                           f"{used['fused_freq_apply']} times")
+                           f"{used['k3.launches']} times")
     if solves_c or not solves_u:
         raise RuntimeError(f"the cached twin's forward ran a Cayley solve "
                            f"({solves_c}), or the check saw none in the "
@@ -2491,13 +2682,14 @@ CLI_MESH_IMAGES = range(4, 6)  # 18g
 CLI_MESH_CROWN_CELLS = 16 * 16 * CERT_CHUNK  # 18g's CROWN prefix of the grid
 CLI_TIMEOUT = 600
 # a module run as ``python -m <module>`` (runpy, as -m does; the module is
-# the first argument), then the kernels' launch counts of that process as
-# the last line of its stdout
+# the first argument), then the kernels' launches in that process, by their
+# counters' names, as the last line of its stdout
 CLI_COUNTING = (
     "import json, runpy, sys\n"
     "runpy.run_module(sys.argv.pop(1), run_name='__main__', alter_sys=True)\n"
-    "from fiode_tpu_torch._bench_common import counts\n"
-    "print('LAUNCHES ' + json.dumps(counts()), flush=True)\n")
+    "from fiode_tpu_torch.utils.tracing import counters\n"
+    f"print('LAUNCHES ' + json.dumps({{k: counters().get(k, 0) for k in {LAUNCHES!r}}}),"
+    " flush=True)\n")
 
 
 def run_cli(tag: str, args: list, counted: bool = True, launcher=None,
@@ -2676,7 +2868,7 @@ def _cli_checks(dev, jobs, secs, launches) -> None:
         raise RuntimeError(f"18a: certified {summary['certified_idx']}, artifact {expect}")
     if summary["cells_checked"] != CERT_CELLS:
         raise RuntimeError("18a: the sweep did not cover the grid")
-    if not (launches["18a"]["fused_rhs"] and launches["18a"]["fused_freq_apply"]):
+    if not (launches["18a"]["k1.launches"] and launches["18a"]["k3.launches"]):
         raise RuntimeError(f"18a: the clean check missed K1 or K3: {launches['18a']}")
     if any(folded[k] != summary[k] for k in common):
         raise RuntimeError(f"18a: summarize-stream {folded} differs from {summary}")
@@ -2721,7 +2913,7 @@ def _cli_checks(dev, jobs, secs, launches) -> None:
         f"command {secs['18c']:.1f} s | launches {launches['18c']}")
     if broken or jax_fields - set(aa) or aa["n_images"] != CLI_ATTACK_IMAGES:
         raise RuntimeError(f"18c: broken {broken}, missing {jax_fields - set(aa)}")
-    if min(launches["18c"].values()) == 0:
+    if min(launches["18c"][k] for k in K1_K3) == 0:
         raise RuntimeError(f"18c: a kernel was not launched by the attacks: "
                            f"{launches['18c']}")
 
@@ -2739,7 +2931,7 @@ def _cli_checks(dev, jobs, secs, launches) -> None:
         f"{secs['18d certify']:.1f} s")
     if missing or restored["n_images"] != 2:
         raise RuntimeError(f"18d: missing {missing}, or no certificate of the run")
-    if not (launches["18d"]["fused_rhs"] and launches["18d"]["fused_freq_apply"]):
+    if not (launches["18d"]["k1.launches"] and launches["18d"]["k3.launches"]):
         raise RuntimeError(f"18d: the run did not go through K1 and K3: {launches['18d']}")
 
     # 18e: the same run under torch.distributed.run, one NCCL rank
@@ -2925,7 +3117,7 @@ def drivers_phase(dev, segway_verdict=None) -> dict:
     if demo_keys - set(got) or got["certify_scale_nominal"]:
         raise RuntimeError(f"19a: fields missing {demo_keys - set(got)}, or the "
                            "certificate took the scaled field")
-    if min(launches["19a"].values()) == 0:
+    if min(launches["19a"][k] for k in K1_K3) == 0:
         raise RuntimeError(f"19a: a kernel was not launched: {launches['19a']}")
 
 
@@ -2946,7 +3138,7 @@ def drivers_phase(dev, segway_verdict=None) -> dict:
         raise RuntimeError(f"19b: training losses {losses}")
     if not 0.0 <= got["validation_error"] <= 1.0 or missing:
         raise RuntimeError(f"19b: val_err {got['validation_error']}, missing {missing}")
-    if min(launches[tag].values()) == 0:
+    if min(launches[tag][k] for k in K1_K3) == 0:
         raise RuntimeError(f"19b: a kernel was not launched: {launches[tag]}")
 
     seg = results("segway", "SEGWAY_RESULTS.json")
@@ -2963,7 +3155,7 @@ def drivers_phase(dev, segway_verdict=None) -> dict:
         raise RuntimeError(f"19c: certified {seg['certified']}, {source} {want_seg}")
     if seg_keys - {"recertified_sound_interval"} != set(seg):
         raise RuntimeError(f"19c: fields {sorted(seg)} are not the JAX driver's")
-    if any(launches["19c segway_workflow"].values()):
+    if any(launches["19c segway_workflow"][k] for k in K1_K3):
         raise RuntimeError("19c: a TPU kernel's port was launched on the Segway path")
 
     hyb = results("certify", "hybrid_sweep.json")["stats"]
@@ -3064,60 +3256,10 @@ def drivers_phase(dev, segway_verdict=None) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
-# phase 20: the keys each benchmark program's record must hold
-BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "qp_method", "best_ms",
-              "median_ms", "call_ms", "device_busy_frac", "mfu", "peak_flops",
-              "pct_peak_hbm", "bound", "device")
-BENCH_RECORD_KEYS = {
-    "bench": BENCH_KEYS + ("nfe_total", "launches", "device_busy_ms_per_solve",
-                           "flops_per_sample_nfe"),
-    "bench_certify": BENCH_KEYS + ("flops_per_cell", "worst", "tf32"),
-}
-
-
-def bench_phase() -> dict:
-    """[20 bench] ``python -m fiode_tpu_torch.bench`` and ``.bench_certify``
-    in subprocesses from the repo root at their defaults, their launches
-    counted: the last line of each one's stdout is its record, which must
-    hold its keys, its JAX twin's metric name, unit and baseline, and the
-    card; the bench must have launched K1 and K3."""
-    import importlib
-    t_phase = time.perf_counter()
-    out = {}
-    for tag, keys in BENCH_RECORD_KEYS.items():
-        mod = importlib.import_module(f"fiode_tpu_torch.{tag}")
-        res = run_cli(f"20 {tag}", [], module=mod.__name__)
-        for ln in res["stderr"].splitlines():
-            if ln.startswith(f"[{tag}]"):
-                log(f"    20 {tag} | {ln}")
-        rec = json.loads(res["stdout"].splitlines()[-1])
-        missing = [k for k in keys if k not in rec]
-        ref = mod.REF_SAMPLE_NFE_PER_SEC if tag == "bench" else mod.REF_CELLS_PER_SEC
-        log(f"[20 {tag}] {res['seconds']:.1f} s of command | launches "
-            f"{res['launches']} | record:")
-        log(json.dumps(rec))
-        if missing or rec["metric"] != mod.METRIC or rec["unit"] != mod.UNIT:
-            raise RuntimeError(f"{tag}'s record: keys missing {missing}, metric "
-                               f"{rec.get('metric')!r}, unit {rec.get('unit')!r}")
-        if not (rec["value"] > 0 and math.isclose(rec["vs_baseline"], rec["value"] / ref)):
-            raise RuntimeError(f"{tag}: value {rec['value']}, vs_baseline "
-                               f"{rec['vs_baseline']} (baseline {ref})")
-        if rec["device"]["name"] != card()["name"]:
-            raise RuntimeError(f"{tag} names the card {rec['device']}")
-        out[tag] = {"record": rec, "launches": res["launches"],
-                    "seconds": res["seconds"]}
-    launches = out["bench"]["launches"]
-    if launches["fused_rhs"] == 0 or launches["fused_freq_apply"] == 0:
-        raise RuntimeError(f"the bench launched {launches}: K1 and K3 must launch")
-    log(f"[20 bench] phase 20 in {time.perf_counter() - t_phase:.1f} s")
-    return out
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", choices=("all", "certify", "train", "control",
-                                         "ode", "attack", "cli", "drivers",
-                                         "bench"),
+                                         "ode", "attack", "cli", "drivers"),
                     default="all")
     phases = ap.parse_args().phases
     only_certify, only_train = phases == "certify", phases == "train"
@@ -3158,7 +3300,7 @@ def main() -> None:
     # (n = 10) and phase 3's wide state (n = 100); one nvcc each, together
     builds = [lambda: load_library("fused_cayley_conv"),
               lambda: fused_rhs_module.build(N_CLASSES, MLP)]
-    certifies = phases in ("all", "certify", "cli", "drivers", "bench")
+    certifies = phases in ("all", "certify", "cli", "drivers")
     if phases in ("all", "certify", "cli", "drivers"):
         builds.append(lambda: load_cpp_library("grid_enum"))
     if certifies:  # K4 and K5 at the certify configuration's widths
@@ -3216,8 +3358,6 @@ def main() -> None:
             cli_phase(dev)
         elif phases == "drivers":
             drivers_phase(dev)
-        elif phases == "bench":
-            bench_phase()
         else:
             ode_phases(flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev), dev)
         log(smi)
@@ -3225,7 +3365,7 @@ def main() -> None:
         return
 
     model = flagship(N_CLASSES, MLP, generator=gen(SEED), device=dev)
-    errs = {"fused_rhs": 0.0, "fused_freq_apply": 0.0}
+    errs = {"k1": 0.0, "k3": 0.0}
 
     # 3. K1 vs plain ----------------------------------------------------------
     with torch.no_grad():
@@ -3239,7 +3379,7 @@ def main() -> None:
             want = rhs_reference(h, xc, p, *args)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            errs["fused_rhs"] = max(errs["fused_rhs"], err)
+            errs["k1"] = max(errs["k1"], err)
             log(f"[3 K1] B={K1_BATCH} n={N_CLASSES} mlp={MLP} scale_nominal={sn}: "
                 f"max|d|={err:.3e} (tol {K1_TOL:g})")
             if not err <= K1_TOL:
@@ -3267,7 +3407,7 @@ def main() -> None:
             err = (got - want).abs().max().item()
             e_kernel = (got - exact).abs().max().item()
             e_plain = (want - exact).abs().max().item()
-            errs["fused_rhs"] = max(errs["fused_rhs"], err)
+            errs["k1"] = max(errs["k1"], err)
             log(f"[3 K1] B={K1_BATCH} n={n_w} mlp={MLP} scale_nominal=False "
                 f"sigma_1={sigma_1:g}: "
                 f"max|d|={err:.3e} (tol {K1_TOL:g}) | against float64: kernel "
@@ -3299,7 +3439,7 @@ def main() -> None:
         want = apply_freq_matrices(x, Q, impl="dft")
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        errs["fused_freq_apply"] = max(errs["fused_freq_apply"], err)
+        errs["k3"] = max(errs["k3"], err)
         log(f"[4 K3] {tag} {x.shape[1]}->{Q.shape[1]} @{x.shape[-1]} "
             f"B={x.shape[0]}: max|d|={err:.3e} (tol {K3_TOL:g})")
         if not err <= K3_TOL:
@@ -3351,10 +3491,10 @@ def main() -> None:
 
     x = torch.rand(E2E_BATCH, 3, 32, 32, generator=gen(3)).to(dev)
     with torch.no_grad():
-        reset_counts()
+        since = counters()
         sol_k = checked_solve(x)
         torch.cuda.synchronize()
-        launches = counts()
+        launches = launched(since)
         with plain_path():
             sol_p = checked_solve(x)
     yk, yp = sol_k.ys[-1], sol_p.ys[-1]
@@ -3371,10 +3511,10 @@ def main() -> None:
         raise RuntimeError(f"endpoint left the simplex: {row_sum_err}")
     if sol_k.nfe != sol_p.nfe:
         raise RuntimeError(f"NFE differs: kernel {sol_k.nfe} plain {sol_p.nfe}")
-    if launches["fused_rhs"] != sol_k.nfe:
-        raise RuntimeError(f"K1 launched {launches['fused_rhs']} times, NFE {sol_k.nfe}")
-    if launches["fused_freq_apply"] != len(CONV_SHAPES):
-        raise RuntimeError(f"K3 launched {launches['fused_freq_apply']} times, "
+    if launches["k1.launches"] != sol_k.nfe:
+        raise RuntimeError(f"K1 launched {launches['k1.launches']} times, NFE {sol_k.nfe}")
+    if launches["k3.launches"] != len(CONV_SHAPES):
+        raise RuntimeError(f"K3 launched {launches['k3.launches']} times, "
                            f"want {len(CONV_SHAPES)} per forward")
     # training mode changes nothing: the solve never applies dropout
     model.train()
@@ -3494,7 +3634,7 @@ def main() -> None:
 
     # 11-13. certification on the trained checkpoint ------------------------------
     cert = certify_phases(dev)
-    errs["fused_rhs"] = max(errs["fused_rhs"], cert["lipschitz"]["k1_block_err"])
+    errs["k1"] = max(errs["k1"], cert["lipschitz"]["k1_block_err"])
     torch.cuda.empty_cache()
 
     # 15. Lyapunov certified training -----------------------------------------
@@ -3518,10 +3658,7 @@ def main() -> None:
     drivers = drivers_phase(dev, segway_verdict=seg["certified"])
     torch.cuda.empty_cache()
 
-    # 20. the two benchmark programs -------------------------------------------------
-    benches = bench_phase()
-
-    by_phase = {name: {"5 forward solve": launches.get(name, 0),
+    by_phase = {name: {"5 forward solve": launches[name],
                        "9 gradient through the solve": grad["launches"][name],
                        "9 flagship gradient": fgrad["launches"][name],
                        "10 autoattack": attack["launches"][name],
@@ -3537,10 +3674,9 @@ def main() -> None:
                        "19a full_workflow restore": drivers["launches"]["19a"][name],
                        "19b full_workflow train":
                            drivers["launches"]["19b full_workflow train"][name],
-                       "19d hybrid_sweep": drivers["launches"]["19d hybrid_sweep"][name],
-                       "20 bench": benches["bench"]["launches"][name]}
-                for name in attack["launches"]}
-    for name in ("fused_rhs", "fused_freq_apply"):  # the certification paths' kernels
+                       "19d hybrid_sweep": drivers["launches"]["19d hybrid_sweep"][name]}
+                for name in K1_K3}
+    for name in ("k1.launches", "k3.launches"):  # the certification paths' kernels
         if min(by_phase[name].values()) == 0:
             raise RuntimeError(f"{name} was not launched on a path: {by_phase[name]}")
     kf = k3["forward"]
@@ -3548,23 +3684,23 @@ def main() -> None:
         {"name": "fused_rhs", "route": "cuda",
          "source": "fiode_tpu_torch/csrc/fused_rhs.cu",
          "replaces": "fiode_tpu/ops/fused_rhs.py:140",
-         "launches": attack["launches"]["fused_rhs"],
-         "launches_by_phase": by_phase["fused_rhs"],
-         "max_abs_err": errs["fused_rhs"], "ms": k1_ms, "plain_ms": k1_plain,
+         "launches": attack["launches"]["k1.launches"],
+         "launches_by_phase": by_phase["k1.launches"],
+         "max_abs_err": errs["k1"], "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "fused_rhs_backward", "route": "cuda",
          "source": "fiode_tpu_torch/csrc/fused_rhs.cu",
          "replaces": "fiode_tpu/ops/fused_rhs.py:197",
-         "launches": attack["launches"]["fused_rhs_backward"],
-         "launches_by_phase": by_phase["fused_rhs_backward"],
+         "launches": attack["launches"]["k2.launches"],
+         "launches_by_phase": by_phase["k2.launches"],
          "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "fused_freq_apply", "route": "cuda",
          "source": "fiode_tpu_torch/csrc/fused_cayley_conv.cu",
          "replaces": "fiode_tpu/ops/fused_cayley_conv.py:61",
-         "launches": attack["launches"]["fused_freq_apply"],
-         "launches_by_phase": by_phase["fused_freq_apply"],
-         "max_abs_err": max(errs["fused_freq_apply"], k3b["err"]),
+         "launches": attack["launches"]["k3.launches"],
+         "launches_by_phase": by_phase["k3.launches"],
+         "max_abs_err": max(errs["k3"], k3b["err"]),
          "ms": kf["kernel"], "plain_ms": kf["plain"], "bound_ms": kf["bound"],
          "bound_by": max(("bytes", "operations"), key=kf.get),
          "library_ms": kf["fft"]},
@@ -3572,7 +3708,8 @@ def main() -> None:
          "source": "fiode_tpu_torch/csrc/fused_crown.cu", "replaces": None,
          "launches": cert["crown"]["k4"]["launches"],
          "launches_by_phase": {"12 certify crown": cert["crown"]["k4"]["launches"],
-                               "14a refine crown BaB": cert["refine"]["k4_launches"]},
+                               "14a refine crown BaB":
+                                   cert["refine"]["crown_bab"]["k4.launches"]},
          "max_rel_err": cert["crown"]["k4"]["max_rel_err"],
          "ms": cert["crown"]["k4"]["ms"], "plain_ms": cert["crown"]["k4"]["plain_ms"],
          "bound_ms": cert["crown"]["k4"]["bound_ms"], "bound_by": "operations",
@@ -3581,13 +3718,14 @@ def main() -> None:
          "source": "fiode_tpu_torch/csrc/fused_qp.cu", "replaces": None,
          "launches": cert["crown"]["k5"]["launches"],
          "launches_by_phase": {"12 certify crown": cert["crown"]["k5"]["launches"],
-                               "14a refine crown BaB": cert["refine"]["k5_launches"]},
+                               "14a refine crown BaB":
+                                   cert["refine"]["crown_bab"]["k5.launches"]},
          "max_rel_err": cert["crown"]["k5"]["max_rel_err"],
          "ms": cert["crown"]["k5"]["ms"], "plain_ms": cert["crown"]["k5"]["plain_ms"],
          "bound_ms": cert["crown"]["k5"]["bound_ms"], "bound_by": "operations",
          "library_ms": None},
     ]
-    log(f"[done] phases 1-20 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -227,12 +227,12 @@ def _dryrun_work(rank, n, dev, mesh_devs, out_dir) -> dict:
     import numpy as np
     import torch.distributed as dist
 
-    from ._bench_common import counts
     from .attacks.apgd import apgd_ce
     from .experiment import BudgetedForward
     from .models.backbones import TinyMLPBackbone
     from .parallel.multihost import shard_rows
     from .train.trainer import frozen
+    from .utils.tracing import counters
 
     report = {"n_devices": n}
     B = 2 * n
@@ -278,7 +278,9 @@ def _dryrun_work(rank, n, dev, mesh_devs, out_dir) -> dict:
     report["apgd_rows"] = len(xa)
     report["apgd_success"] = int(success.sum())
     report["apgd_max_attempts"] = forward.max_attempts
-    report["launches"] = counts()
+    launches = counters()
+    report["launches"] = {f"k{i}.launches": launches.get(f"k{i}.launches", 0)
+                          for i in range(1, 6)}
     return report
 
 

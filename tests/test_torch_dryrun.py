@@ -28,6 +28,7 @@ def test_dryrun_on_two_gloo_ranks(capsys):
     assert report["backend"] == "gloo" and report["n_devices"] == 2
     assert math.isfinite(report["tiny_loss"]) and math.isfinite(report["kwlarge_loss"])
     assert math.isfinite(report["crown_chunk_max"])
+    assert set(report["launches"]) == {f"k{i}.launches" for i in range(1, 6)}
     mesh, base = report["certify"]["mesh"], report["certify"]["unsharded"]
     assert all(base["clean"])  # the labels are the model's predictions
     for key in ("clean", "certified", "refined", "refine_stats"):

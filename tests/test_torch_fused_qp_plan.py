@@ -357,14 +357,19 @@ def test_route_refinement_sweeps_take_k5_but_their_gradient(facts):
     assert facts == [False, True, True, True]
 
 
-def test_route_bench_certify_and_the_dry_run_take_k5(facts):
-    from fiode_tpu_torch import bench_certify
+def test_route_a_certifier_crown_block_and_the_dry_run_take_k5(facts):
     from fiode_tpu_torch.entry import _crown_chunk
-    inp = bench_certify.inputs(0, "cpu", n_images=2, chunk=32)
-    bench_certify.sweep(inp["Ws"], inp["bs"], inp["x_biases"],
-                        inp["labels"], inp["eta"], n_inner=1)
-    with torch.no_grad():
-        _crown_chunk(inp["Ws"], inp["bs"], inp["eta"], inp["x_biases"][0])
+    from fiode_tpu_torch.verify.certify import Certifier, label_perms
+    model = _tiny_classifier(3)
+    cert = Certifier(model, T=4, eps_input=0.1, chunk=16)
+    x, labels = _images(3, 2), torch.tensor([0, 1])
+    eta = torch.from_numpy(cert.grid[:16])
+    with torch.no_grad():  # one block of one chunk, as certify runs it
+        x_biases = model.features(x) @ cert.U.T + cert.bU
+        cert.crown_block(x_biases, labels, label_perms(labels, cert.n),
+                         eta[None], torch.ones(1, 16, dtype=torch.bool),
+                         torch.full((2,), float("-inf")))
+        _crown_chunk(cert.Ws, cert.bs, eta, x_biases[0])
     assert facts == [True, True]
 
 

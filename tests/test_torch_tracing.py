@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from fiode_tpu_torch import _bench_common
 from fiode_tpu_torch.models.backbones import KWLargeBackbone
 from fiode_tpu_torch.models.dynamics import SimplexDynamics
 from fiode_tpu_torch.models.ivp import NeuralODEClassifier
@@ -246,27 +245,16 @@ def test_debug_trace_writes_the_bodys_spans(profiled):
     assert [r["name"] for r in lines].count("ivp.solve") == 1
 
 
-def test_bench_counts_read_the_launch_counters():
-    _bench_common.reset_counts()
-    assert _bench_common.counts() == {"fused_rhs": 0, "fused_rhs_backward": 0,
-                                      "fused_freq_apply": 0}
-    tracing.count("k1.launches", 3)
-    tracing.count("k3.launches")
-    assert _bench_common.counts() == {"fused_rhs": 3, "fused_rhs_backward": 0,
-                                      "fused_freq_apply": 1}
-    _bench_common.reset_counts()
-    assert set(_bench_common.counts().values()) == {0}
-
-
 def test_the_device_side_copies_of_spans_are_no_device_operations(model,
                                                                   images):
     """A record_function range also shows on the device's timeline, as an
     event of its name without the user-annotation flag: the breakdowns of
-    ``_bench_common`` and ``chip_smoke`` leave it out of busy time."""
+    ``chip_smoke`` leaves it out of busy time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         solve(model, images)
-    ranges = _bench_common.range_names(prof.events())
+    import chip_smoke
+    ranges = chip_smoke.range_names(prof.events())
     assert {"ivp.solve", "ivp.backbone", "cayley",
             "odeint.attempt"} <= ranges
     assert not any(n.startswith("aten::") for n in ranges)
@@ -276,4 +264,4 @@ def test_the_device_side_copies_of_spans_are_no_device_operations(model,
     host = types.SimpleNamespace(name="aten::mm", is_user_annotation=False,
                                  device_type="DeviceType.CPU")
     assert [e.name for e in (copy, kernel, host)
-            if _bench_common.is_device_op(e, ranges)] == ["mix_kernel"]
+            if chip_smoke.is_device_op(e, ranges)] == ["mix_kernel"]
