@@ -18,6 +18,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -39,6 +40,23 @@ def _herm(W: torch.Tensor) -> torch.Tensor:
     return W.transpose(-2, -1).conj()
 
 
+@contextlib.contextmanager
+def _cusolver(device: torch.device):
+    """cuSOLVER / cuBLAS for the CUDA linear algebra inside (PyTorch's
+    default takes MAGMA for a batch of mid-sized matrices, which allocates
+    with cudaMalloc and waits on the host); nothing on other devices."""
+    if device.type != "cuda":
+        yield
+        return
+    backends = torch.backends.cuda
+    saved = backends.preferred_linalg_library()
+    backends.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        backends.preferred_linalg_library(saved)
+
+
 def cayley(W: torch.Tensor) -> torch.Tensor:
     """Cayley transform of a (co, ci) or (batch, co, ci) matrix.
 
@@ -46,6 +64,14 @@ def cayley(W: torch.Tensor) -> torch.Tensor:
     split into U (ci x ci) and V, A = U - U^H + V^H V, and stack
     [(I + A)^{-1}(I - A); -2 V (I + A)^{-1}] (orthonormal columns).  Wide W
     (co < ci) uses the conjugate-transposed construction.
+
+    The solve checks no pivot: I + A has a positive semidefinite Hermitian
+    part (U - U^H is skew, V^H V semidefinite), so every eigenvalue has
+    real part >= 1 and I + A is always invertible.  On CUDA the
+    factorisation is cuSOLVER's (a batch: cuBLAS's batched LU), whose
+    workspace comes from PyTorch's caching allocator: the solve neither
+    waits on the host nor allocates outside the allocator, so a CUDA graph
+    can capture it.
 
     Traced as the span ``cayley``.
     """
@@ -64,7 +90,9 @@ def cayley(W: torch.Tensor) -> torch.Tensor:
         A = U - _herm(U) + _herm(V) @ V
         # one factorisation serves both blocks:
         # (I+A)^{-1}(I-A) = 2(I+A)^{-1} - I
-        X = torch.linalg.solve(eye + A, eye.expand_as(A))
+        with _cusolver(W.device):
+            X = torch.linalg.solve_ex(eye + A, eye.expand_as(A),
+                                      check_errors=False)[0]
         Q = torch.cat([2.0 * X - eye, -2.0 * (V @ X)], dim=-2)
         if transposed:
             Q = _herm(Q)

@@ -9,8 +9,9 @@
     root span it belongs to: one solve, block or step), ``name``, host
     ``t0_ns`` / ``t1_ns`` (``time.perf_counter_ns``), ``device_ms``
     (between two CUDA timing events on the current stream, where CUDA is
-    initialised; None otherwise) and ``counters``, the deltas of every
-    counter inside the span.
+    initialised and the stream is not under CUDA-graph capture; None
+    otherwise) and ``counters``, the deltas of every counter inside the
+    span.
   * ``count(name, n=1)``: adds n to one process-wide counter, always on;
     ``counters()`` returns a copy of them all.
 
@@ -24,11 +25,14 @@ waiting for the device where a record's end event is still pending;
 ``clear()`` empties it.  ``utils/debug.trace`` writes a body's records
 as ``spans.jsonl`` beside its Chrome trace.
 
-Counter names: ``k1.launches`` to ``k5.launches`` (the kernel wrappers)
-and ``odeint.rejected`` (the adaptive solver's rejected steps).  What a
-span waits for on the device (its synchronising CUDA calls) and allocates
-there is read from a profiler's trace of it, not counted here: that sees
-the libraries' own calls too.
+Counter names: ``k1.launches`` to ``k5.launches`` (the kernel wrappers),
+``odeint.rejected`` (the adaptive solver's rejected steps) and
+``train.graph_captures`` / ``train.graph_replays`` (the train step's CUDA
+graph, ``train/step_graph.py``).  A replayed graph adds the launch
+deltas its capture counted, so the launch counters keep counting kernels
+launched.  What a span waits for on the device (its synchronising CUDA
+calls) and allocates there is read from a profiler's trace of it, not
+counted here: that sees the libraries' own calls too.
 """
 from __future__ import annotations
 
@@ -109,7 +113,8 @@ class _Span:
         self.range.__enter__()
         self.before = counters()
         self.ev = None
-        if torch.cuda.is_initialized():
+        if (torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
             self.ev = (_event(), _event())
             self.ev[0].record()
         _stack.append(self.rec)

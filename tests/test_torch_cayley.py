@@ -37,6 +37,39 @@ def test_cayley_matches_jax(shape, complex_):
     np.testing.assert_allclose(got, want, atol=TOL)
 
 
+def _cayley_checked(W):
+    """The Cayley transform as the port took it before its solve dropped
+    the pivot check: ``torch.linalg.solve``, which reads its info back."""
+    squeeze = W.ndim == 2
+    W = W[None] if squeeze else W
+    transposed = W.shape[-2] < W.shape[-1]
+    if transposed:
+        W = W.transpose(-2, -1).conj()
+    ci = W.shape[-1]
+    U, V = W[:, :ci, :], W[:, ci:, :]
+    eye = torch.eye(ci, dtype=W.dtype)
+    A = U - U.transpose(-2, -1).conj() + V.transpose(-2, -1).conj() @ V
+    X = torch.linalg.solve(eye + A, eye.expand_as(A))
+    Q = torch.cat([2.0 * X - eye, -2.0 * (V @ X)], dim=-2)
+    if transposed:
+        Q = Q.transpose(-2, -1).conj()
+    Q = Q.resolve_conj()
+    return Q[0] if squeeze else Q
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("shape", [(6, 6), (9, 4), (4, 9), (3, 7, 7),
+                                   (3, 7, 5), (3, 5, 7)])
+def test_cayley_without_the_pivot_check_is_the_checked_solve(shape, complex_):
+    """solve_ex without its check gives the checked solve's numbers, bit
+    for bit: square, tall and wide, real and complex, one or a batch."""
+    W = torch.from_numpy(_mat(shape, seed=shape[-2] * 7 + shape[-1],
+                              complex_=complex_))
+    got, want = tc.cayley(W), _cayley_checked(W)
+    assert got.shape == want.shape == W.shape
+    assert torch.equal(got, want)
+
+
 def test_cayley_linear_kernel_matches_jax():
     W = _mat((32, 20), seed=5)
     alpha = np.float32(3.5)
